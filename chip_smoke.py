@@ -5,27 +5,39 @@
 
 It needs one CUDA card and exits non-zero without one. In order:
 
-1. builds every CUDA kernel from ``src/repro_torch/csrc`` (``nvcc``, sm_90a)
-   and prints the build time and the compiler's register report;
-2. generates one shard of a 32-way document-sharded MS MARCO passage
+1. builds every CUDA kernel from ``src/repro_torch/csrc`` (``nvcc``, sm_90a,
+   one process per source, all at once) and prints the build time and the
+   compiler's register report;
+2. kernel phases at the reference's contract shapes: each kernel, and each
+   single-query (B=1) wrapper, held against its plain PyTorch version run
+   on a host copy of its inputs;
+3. generates one shard of a 32-way document-sharded MS MARCO passage
    deployment (276,307 docs, 256 queries) under the ``spladev2`` and
    ``bm25`` treatments, builds each impact index on the host and places it
    on the card;
-3. kernel phases: each kernel, and each single-query (B=1) wrapper, at the
-   reference's contract shapes and at the main path's shapes (with and
-   without a tombstone bitmap), held against its plain PyTorch version on
-   the card (ids equal, scores within rtol 1e-5 / atol 1e-6) and timed with
-   CUDA events beside the plain version and a library yardstick;
-4. main path: after one warm-up batch per configuration, serves the 256
-   queries in batches of 64 through ``saat_search`` with the fused kernel
-   and with the scatter kernel, at k=10 for rho in {100k, 1M, exact} and at
-   k=1000 for rho=1M, with the launch counters set to 0 just before and
-   read just after;
-5. holds every result against the plain ``"sort"`` mode on the card, and
-   the exact-rho results against ``exhaustive_search``;
-6. prints RR@10, batch latencies (median and max), a profiled batch, the
-   card's name and power limit, one
-   ``{"kernels": [...]}`` JSON line, and last the ``{"ok": true, ...}`` line.
+4. kernel phases at the main paths' shapes (one 64-query ``spladev2``
+   batch; with and without a tombstone bitmap), held against the plain
+   versions as above and timed with CUDA events beside the plain version
+   and a library yardstick where one PyTorch call computes the same;
+5. the SAAT path: after one warm-up batch per configuration, serves the
+   256 queries in batches of 64 through ``saat_search`` with the fused
+   kernel and with the scatter kernel, at k=10 for rho in {100k, 1M,
+   exact} and at k=1000 for rho=1M, and holds every result against the
+   plain ``"sort"`` mode on the card (and ``exhaustive_search`` at exact
+   rho); prints RR@10, batch latencies and a profiled batch;
+6. the DAAT path: the same batches through ``daat_search_batched`` in the
+   plain, split (``use_kernels``), fused (``fused_chunk``) and multi-trip
+   (``trips_per_launch=8``) modes at (k=10, exact), (k=10, approximate)
+   and (k=1000, exact), and one batch under the tombstone bitmap; the
+   kernel modes must agree exactly, the plain mode within tolerance and
+   with equal ``WorkStats`` (but at near-ties, printed), and exact results
+   must be rank-safe and match ``exhaustive_search``; prints the work
+   counts, batch latencies, host syncs and a profiled batch.
+
+Each path runs with the launch counters set to 0 just before and read just
+after, and fails if one of its kernels was not launched. Last it prints
+the card's name and power limit, one ``{"kernels": [...]}`` JSON line, and
+the ``{"ok": true, ...}`` line.
 
 Any mismatch raises, so the run exits non-zero and prints no result.
 """
@@ -36,6 +48,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import namedtuple
 from pathlib import Path
 
 import numpy as np
@@ -44,20 +57,40 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import (  # noqa: E402
+    DaatResult,
+    block_upper_bounds,
     build_impact_index,
+    csr_blockmax_offsets,
+    daat_plan,
+    daat_search_batched,
     exhaustive_search,
+    max_blocks_per_term,
     max_segments_per_term,
     pad_queries,
+    query_vector,
+    query_vectors,
     saat_plan,
     saat_search,
+    score_all_docs,
+    score_blocks,
 )
+from repro_torch.core.daat import _mask_dead_blocks  # noqa: E402
 from repro_torch.core.saat import _gather_postings_batched  # noqa: E402
+from repro_torch.core.topk import topk  # noqa: E402
 from repro_torch.data.synthetic import CorpusConfig, generate_corpus  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.block_prune_csr import ops as prune_ops  # noqa: E402
+from repro_torch.kernels.block_prune_csr import ref as prune_ref  # noqa: E402
+from repro_torch.kernels.block_topk import ops as btopk_ops  # noqa: E402
+from repro_torch.kernels.block_topk import ref as btopk_ref  # noqa: E402
+from repro_torch.kernels.chunk_step import ops as chunk_ops  # noqa: E402
+from repro_torch.kernels.chunk_step import ref as chunk_ref  # noqa: E402
 from repro_torch.kernels.impact_scatter import ops as scatter_ops  # noqa: E402
 from repro_torch.kernels.impact_scatter import ref as scatter_ref  # noqa: E402
 from repro_torch.kernels.impact_scatter_topk import ops as fused_ops  # noqa: E402
 from repro_torch.kernels.impact_scatter_topk import ref as fused_ref  # noqa: E402
+from repro_torch.kernels.sparse_score import ops as score_ops  # noqa: E402
+from repro_torch.kernels.sparse_score import ref as score_ref  # noqa: E402
 from repro_torch.metrics.ir_metrics import mrr_at_k  # noqa: E402
 from repro_torch.models.treatments import apply_treatment  # noqa: E402
 
@@ -91,6 +124,76 @@ TOPK_CASES = (
     ("b8", dict(batch=8, n_postings=1000, n_docs=700, k=13, block_d=256, tile_p=128)),
     ("b3_live", dict(batch=3, n_postings=1000, n_docs=700, k=13, block_d=256, tile_p=128, live=1)),
 )
+PRUNE_CASES = (
+    ("b1", dict(batch=1, lq=8, nb=100, m=16, n_bm=800)),
+    ("b4_wide", dict(batch=4, lq=32, nb=2048, m=64, n_bm=12000)),
+    ("b3_tiny", dict(batch=3, lq=5, nb=17, m=3, n_bm=40)),
+    ("b2_single_slot", dict(batch=2, lq=1, nb=64, m=8, n_bm=100)),
+)
+BTOPK_CASES = (
+    ("ragged", dict(n=1000, k=10, tile=256)),
+    ("aligned", dict(n=8192, k=100, tile=1024)),
+    ("k_is_n", dict(n=100, k=100, tile=128)),
+    ("wide_tile", dict(n=5000, k=7, tile=512)),
+    ("b1", dict(batch=1, n=1000, k=10, tile=256)),
+    ("b3_ragged", dict(batch=3, n=517, k=7, tile=128)),
+    ("b8_k_is_n", dict(batch=8, n=100, k=100, tile=128)),
+)
+SCORE_CASES = (
+    ("small", dict(n=100, tmax=16, lq=8)),
+    ("aligned", dict(n=512, tmax=64, lq=32)),
+    ("ragged", dict(n=130, tmax=7, lq=3)),
+    ("b1", dict(batch=1, n=100, tmax=16, lq=8)),
+    ("b3_ragged", dict(batch=3, n=130, tmax=7, lq=3)),
+    ("b4_aligned", dict(batch=4, n=512, tmax=64, lq=32)),
+)
+_CHUNK = dict(n_docs=220, block_size=32, lq=6)
+_CHUNK24 = dict(n_docs=130, block_size=24, lq=4)
+CHUNK_CASES = (
+    tuple((f"b{B}_budget{budget}_k{k}", dict(_CHUNK, B=B, budget=budget, k=k))
+          for B in (1, 3) for budget in (1, 3, 7) for k in (1, 5))
+    + (("ragged_bs24", dict(_CHUNK24, B=2, budget=5, k=3)),)
+    + tuple((f"multi_b{B}_trips{trips}_budget{budget}", dict(_CHUNK, B=B, trips=trips,
+                                                             budget=budget, k=5))
+            for B, trips, budget in ((1, 1, 3), (3, 3, 7), (2, 4, 2)))
+    + (("multi_ragged_bs24", dict(_CHUNK24, B=2, trips=2, budget=5, k=3)),
+       ("live_b2_budget3", dict(_CHUNK, B=2, budget=3, k=5, live=1)),
+       ("multi_live_b2_trips3", dict(_CHUNK, B=2, trips=3, budget=3, k=5, live=1)))
+)
+
+# DAAT at the reference's serving defaults (src/repro/serving/scheduler.py)
+DAAT_KW = dict(est_blocks=8, block_budget=16)
+DAAT_RUNS = ((10, True), (10, False), (1000, True))  # (k, exact)
+DAAT_MODES = (
+    ("plain", {}),
+    ("split", dict(use_kernels=True)),
+    ("fused", dict(use_kernels=True, fused_chunk=True)),
+    ("multi", dict(use_kernels=True, fused_chunk=True, trips_per_launch=8)),
+)
+STAT_FIELDS = ("n_survivors", "blocks_scored", "chunks", "rank_safe")
+
+# Every kernel: its launch counter (module, attribute), its source, the
+# Pallas entry it replaces and the main path that launches it. The kernels
+# line reports each at the first main-shape row of its phase.
+Kernel = namedtuple("Kernel", "module counter source replaces path")
+KERNELS = {
+    "impact_scatter": Kernel(scatter_ops, "LAUNCHES", "src/repro_torch/csrc/impact_scatter.cu",
+                             "src/repro/kernels/impact_scatter/kernel.py:83", "saat"),
+    "impact_scatter_topk": Kernel(fused_ops, "LAUNCHES", "src/repro_torch/csrc/impact_scatter_topk.cu",
+                                  "src/repro/kernels/impact_scatter_topk/kernel.py:229", "saat"),
+    "block_prune_csr": Kernel(prune_ops, "LAUNCHES", "src/repro_torch/csrc/block_prune_csr.cu",
+                              "src/repro/kernels/block_prune_csr/kernel.py:84", "daat"),
+    "block_topk": Kernel(btopk_ops, "LAUNCHES", "src/repro_torch/csrc/block_topk.cu",
+                         "src/repro/kernels/block_topk/kernel.py:41", "daat"),
+    "sparse_score": Kernel(score_ops, "LAUNCHES", "src/repro_torch/csrc/sparse_score.cu",
+                           "src/repro/kernels/sparse_score/kernel.py:42", "daat"),
+    "chunk_step": Kernel(chunk_ops, "LAUNCHES", "src/repro_torch/csrc/chunk_step.cu",
+                         "src/repro/kernels/chunk_step/kernel.py:295", "daat"),
+    "chunk_step_multi": Kernel(chunk_ops, "MULTI_LAUNCHES", "src/repro_torch/csrc/chunk_step.cu",
+                               "src/repro/kernels/chunk_step/kernel.py:375", "daat"),
+}
+SAAT_KERNELS = tuple(n for n, kern in KERNELS.items() if kern.path == "saat")
+DAAT_KERNELS = tuple(n for n, kern in KERNELS.items() if kern.path == "daat")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -142,6 +245,15 @@ def gpu_name_and_limit() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_launches() -> None:
+    for kern in KERNELS.values():
+        setattr(kern.module, kern.counter, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(kern.module, kern.counter) for name, kern in KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -351,12 +463,49 @@ def serve(data, n_batches=None):
     return results, latency
 
 
+def near(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Equal (-inf included) or within RTOL/ATOL."""
+    return (a == b) | ((a - b).abs() <= ATOL + RTOL * b.abs())
+
+
 def tie_swaps(got_s, got_i, want_s, want_i, what) -> int:
-    """Scores agree rank by rank within tolerance, so where the ids differ
-    at a rank the two docs' scores agree within tolerance too: a near-tie
-    that summation order may break either way. Returns how many ranks."""
+    """Scores agree rank by rank within tolerance. Where the ids differ at a
+    rank with a finite score, each of the two docs must stand in the other
+    list with a score within tolerance of its own or, if the other list left
+    it out, within tolerance of that list's last score: a near-tie that
+    summation order may break either way. Returns how many ranks differ."""
     max_err(got_s, want_s, what)
-    return int((got_i.cpu() != want_i.cpu()).sum())
+    got_s, want_s = got_s.float().cpu(), want_s.float().cpu()
+    got_i, want_i = got_i.cpu().long(), want_i.cpu().long()
+    differ = (got_i != want_i) & torch.isfinite(got_s)
+    for q in torch.nonzero(differ.any(dim=-1)).flatten().tolist():
+        ranks = torch.nonzero(differ[q]).flatten()
+        for a_s, a_i, b_s, b_i in ((got_s[q], got_i[q], want_s[q], want_i[q]),
+                                   (want_s[q], want_i[q], got_s[q], got_i[q])):
+            hit = (a_i[ranks, None] == b_i[None, :]) & torch.isfinite(b_s)[None, :]
+            other = torch.where(hit.any(dim=1), b_s[hit.float().argmax(dim=1)], b_s[-1])
+            bad = ~near(a_s[ranks], other)
+            check(not bool(bad.any()),
+                  f"{what}: query {q}: docs {a_i[ranks][bad][:4].tolist()} scored "
+                  f"{a_s[ranks][bad][:4].tolist()} here and {other[bad][:4].tolist()} in the "
+                  f"other list (or its last score): not a near-tie")
+    return int((got_i != want_i).sum())
+
+
+def rescore(index, qt, qw, scores, ids, what, live=None) -> None:
+    """The returned ids carry the returned scores: every finite score lies
+    within RTOL/ATOL of its doc's score by the plain scorer, and under a
+    tombstone bitmap every such doc is live."""
+    fin = torch.isfinite(scores)
+    docs = torch.where(fin, ids, 0).long()
+    qvec = query_vectors(index, qt, qw)
+    rows = torch.arange(qvec.shape[0], device=qvec.device)[:, None, None]
+    want = torch.sum(qvec[rows, index.doc_terms[docs].long()] * index.doc_weights[docs], dim=-1)
+    bad = fin & ~near(scores.float(), want)
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} returned ids do not carry their "
+                               f"scores (the plain scorer differs beyond tolerance)")
+    if live is not None:
+        check(bool((live[docs] != 0)[fin].all()), f"{what}: a tombstoned doc was returned")
 
 
 def verify(data, results, qrels) -> dict:
@@ -420,6 +569,545 @@ def profile_batch(index, bt, bw, k, rho) -> None:
             print(f"  {what} {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:80]}")
 
 
+# ---------------------------------------------------------------------------
+# DAAT kernel phases: block_prune_csr (B3), block_topk (B6), sparse_score
+# (B7), chunk_step (B4) and chunk_step_multi (B5) against their plain
+# versions, run on a host copy of the inputs.
+# ---------------------------------------------------------------------------
+
+
+def host(t):
+    return None if t is None else t.cpu()
+
+
+def prune_inputs(dims: dict, seed: int, device):
+    """CSR block-max lists of random terms and per-(query, slot) windows into
+    them, a fifth of them empty pad slots; one row with theta = -inf."""
+    rng = np.random.default_rng(seed)
+    nb, m, n_bm = dims["nb"], dims["m"], dims["n_bm"]
+    starts, counts, total = [], [], 0
+    bm_block = np.zeros(n_bm, np.int32)
+    while True:
+        c = int(min(rng.integers(1, 2 * m + 1), nb))
+        if total + c > n_bm:
+            break
+        bm_block[total:total + c] = np.sort(rng.choice(nb, c, replace=False))
+        starts.append(total)
+        counts.append(c)
+        total += c
+    bm_weight = np.zeros(n_bm, np.float32)
+    bm_weight[:total] = rng.gamma(1.0, 1.0, total)
+    terms = rng.integers(0, len(starts), (dims["batch"], dims["lq"]))
+    base = np.asarray(starts, np.int32)[terms]
+    cnt = np.minimum(np.asarray(counts, np.int32)[terms], m)
+    qw = rng.gamma(1.0, 1.0, terms.shape).astype(np.float32)
+    empty = rng.random(terms.shape) < 0.2
+    base[empty], cnt[empty], qw[empty] = total, 0, 0.0
+    theta = rng.uniform(0.0, 2.0, dims["batch"]).astype(np.float32)
+    theta[0] = -np.inf
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (bm_block, bm_weight, base, cnt, qw, theta))
+
+
+def prune_phase(args, n_blocks, timed, what) -> dict:
+    """block_prune_csr: ub equal bit for bit and the mask equal."""
+    bm_block, bm_weight, base, cnt, qw, theta = args
+    m = max(1, int(cnt.max()))
+    gu, gm = prune_ops.block_prune_csr_launch(*args, n_blocks)
+    wu, wm = prune_ref.block_prune_csr_batched_ref(*(a.cpu() for a in args), n_blocks=n_blocks,
+                                                   max_bm_per_term=m)
+    sync()
+    check(torch.equal(gu.cpu(), wu), f"block_prune_csr {what}: ub differs from the plain version")
+    check(torch.equal(gm.cpu(), wm), f"block_prune_csr {what}: mask differs")
+    row = {"what": what, "max_abs_err": 0.0}
+    if timed:
+        B, lq = base.shape
+        offs = torch.arange(m, device=base.device)
+        idx = base[..., None] + offs
+        valid = offs < cnt[..., None]
+        idx = torch.where(valid, idx, 0).long()
+        blocks = torch.where(valid, bm_block[idx], 0).long().reshape(B, -1)
+        w = (torch.where(valid, bm_weight[idx], 0.0) * qw[..., None]).reshape(B, -1)
+        n_entries = int(cnt.sum())
+        row.update(
+            ms=cuda_ms(lambda: prune_ops.block_prune_csr_launch(*args, n_blocks)),
+            plain_ms=cuda_ms(lambda: prune_ref.block_prune_csr_batched_ref(
+                *args, n_blocks=n_blocks, max_bm_per_term=m)),
+            library_ms=cuda_ms(lambda: torch.zeros((B, n_blocks), device=w.device)
+                               .scatter_add_(1, blocks, w)),
+            # each window entry read once (block id and maximum), the slot
+            # descriptors read once, ub (f32) and the mask (bool) written once
+            bound_ms=1e3 * (8 * n_entries + 12 * B * lq + 5 * B * n_blocks) / HBM_BYTES_PER_S,
+            entries=n_entries, shape=[B, lq, n_blocks],
+        )
+    return row
+
+
+def tied_scores(shape, seed, device):
+    """Few distinct values, so most scores tie; a tenth of them -inf."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, 5, shape).astype(np.float32)
+    s[rng.random(shape) < 0.1] = -np.inf
+    return torch.as_tensor(s, device=device)
+
+
+def btopk_phase(scores, k, tile, single, timed, what) -> dict:
+    """block_topk: stage 1 against its plain version, and the wrapper
+    (stage 1 and the merge) against the plain wrapper: ids and scores equal."""
+    b, n = scores.shape
+    tile = min(tile, max(128, n))
+    s = common.pad_axis(scores, 1, tile, fill=float("-inf")).contiguous()
+    k_tile = min(max(min(k, n), 1), tile)
+    gs, gi = btopk_ops.block_topk_launch(s, k_tile, tile)
+    ws, wi = btopk_ref.block_topk_stage1_ref(s.cpu(), k_tile, tile)
+    sync()
+    ids_equal(gi, wi, f"block_topk {what}")
+    check(torch.equal(gs.cpu(), ws), f"block_topk {what}: scores differ")
+    if single:
+        gs, gi = (t[None] for t in btopk_ops.block_topk(scores[0], k, tile=tile))
+    else:
+        gs, gi = btopk_ops.block_topk_batched(scores, k, tile=tile)
+    ws, wi = btopk_ops.block_topk_batched(scores.cpu(), k, tile=tile)
+    ids_equal(gi, wi, f"block_topk wrapper {what}")
+    check(torch.equal(gs.cpu(), ws), f"block_topk wrapper {what}: scores differ")
+    row = {"what": what, "max_abs_err": 0.0}
+    if timed:
+        n_tiles = s.shape[1] // tile
+        row.update(
+            ms=cuda_ms(lambda: btopk_ops.block_topk_launch(s, k_tile, tile)),
+            plain_ms=cuda_ms(lambda: btopk_ref.block_topk_stage1_ref(s, k_tile, tile)),
+            library_ms=cuda_ms(lambda: torch.topk(scores, min(k, n), dim=-1)),
+            bound_ms=1e3 * (4 * b * n + 8 * b * n_tiles * k_tile) / HBM_BYTES_PER_S,
+            shape=[b, n, tile, k_tile],
+        )
+    return row
+
+
+def score_inputs(dims: dict, seed: int, device):
+    """A 50-term vocabulary, so doc terms match often; every query repeats
+    its first term in slot 1 and carries a zero-weight slot."""
+    rng = np.random.default_rng(seed)
+    lead = (dims.get("batch", 1),)
+    dt = rng.integers(0, 50, lead + (dims["n"], dims["tmax"])).astype(np.int32)
+    dw = rng.gamma(1.0, 1.0, dt.shape).astype(np.float32)
+    qt = rng.integers(0, 50, lead + (dims["lq"],)).astype(np.int32)
+    qw = rng.gamma(1.0, 1.0, qt.shape).astype(np.float32)
+    if dims["lq"] > 1:
+        qt[..., 1] = qt[..., 0]
+    if dims["lq"] > 2:
+        qw[..., 2] = 0.0
+    return tuple(torch.as_tensor(a, device=device) for a in (dt, dw, qt, qw))
+
+
+def matched_slots(terms, qt, qw) -> int:
+    """Term slots whose term is one of their query's nonzero-weight terms:
+    the only slots whose weight a scorer must read. ``terms`` holds one
+    ``[..., Tmax]`` tensor of doc rows per query."""
+    return sum(int(torch.isin(t, q[w > 0]).sum()) for t, q, w in zip(terms, qt, qw))
+
+
+def score_phase(args, single, timed, what) -> dict:
+    """sparse_score: the kernel and the wrapper against the plain version,
+    scores within RTOL/ATOL (the kernel sums a doc's terms in another order)."""
+    got = score_ops.sparse_score_launch(*args)
+    want = score_ref.sparse_score_batched_ref(*(a.cpu() for a in args))
+    sync()
+    err = max_err(got, want, f"sparse_score {what}")
+    if single:
+        wrapped = score_ops.sparse_score(*(a[0] for a in args))[None]
+    else:
+        wrapped = score_ops.sparse_score_batched(*args)
+    err = max(err, max_err(wrapped, want, f"sparse_score wrapper {what}"))
+    row = {"what": what, "max_abs_err": err}
+    if timed:
+        B, n, tmax = args[0].shape
+        lq = args[2].shape[1]
+        matched = matched_slots(args[0], args[2], args[3])
+        row.update(
+            ms=cuda_ms(lambda: score_ops.sparse_score_launch(*args)),
+            plain_ms=cuda_ms(lambda: score_ref.sparse_score_batched_ref(*args), iters=3),
+            library_ms=None,
+            # every term id read once, a weight only where the term matches
+            bound_ms=1e3 * (4 * B * n * tmax + 4 * matched + 8 * B * lq + 4 * B * n)
+            / HBM_BYTES_PER_S,
+            matched_slots=matched, shape=[B, n, tmax, lq],
+        )
+    return row
+
+
+def phase1_state(index, qt, qw, k, est_blocks, live=None):
+    """The DAAT engine's phase-1 state (plain pieces): ub, processed, the
+    pool and theta after the ``est_blocks`` highest-bound blocks are scored."""
+    ub, qvec = daat_plan(index, qt, qw, max_blocks_per_term(index))
+    if live is not None:
+        ub = _mask_dead_blocks(index, ub, live)
+    B = qt.shape[0]
+    _, b1 = topk(ub, est_blocks)
+    s1, d1 = score_blocks(index, qvec, b1, live)
+    pool_s, pos = topk(s1.reshape(B, -1), k)
+    pool_i = torch.gather(d1.reshape(B, -1), -1, pos).to(torch.int32)
+    processed = torch.zeros((B, index.n_blocks), dtype=torch.bool, device=ub.device)
+    processed.scatter_(1, b1.long(), True)
+    return ub, processed, pool_s, pool_i, pool_s[:, k - 1]
+
+
+def near_tie_rows(ub, thetas) -> torch.Tensor:
+    """Rows where some block's bound lies within RTOL of one of the row's
+    thetas: there a last-bit difference may flip the live gate."""
+    ub = ub.float().cpu()
+    out = torch.zeros(ub.shape[0], dtype=torch.bool)
+    for th in thetas:
+        th = th.float().cpu()[:, None]
+        out |= (torch.isfinite(ub) & ((ub - th).abs() <= RTOL * th.abs())).any(dim=-1)
+    return out
+
+
+def close_rows(got_s, want_s) -> torch.Tensor:
+    """Rows whose scores agree rank by rank within RTOL/ATOL, -inf where and
+    only where the other has -inf."""
+    got_s, want_s = got_s.float().cpu(), want_s.float().cpu()
+    fin = torch.isfinite(want_s)
+    same_pattern = (torch.isfinite(got_s) == fin) & (torch.isneginf(got_s) == torch.isneginf(want_s))
+    diff = torch.where(fin, (got_s - want_s).abs(), 0.0)
+    ok = same_pattern & (diff <= ATOL + RTOL * want_s.abs().nan_to_num(0.0, 0.0, 0.0))
+    return ok.reshape(ok.shape[0], -1).all(dim=-1)
+
+
+def chunk_phase(index, qt, qw_raw, state, budget, live, trips, timed, what) -> dict:
+    """chunk_step (trips None) or chunk_step_multi against its plain version.
+
+    Rows whose processed row, trip count, theta or scores differ must have a
+    near-tie (a block bound within RTOL of a theta of the plain trip
+    sequence); the others must agree: processed and trips_done equal, scores
+    and theta within RTOL/ATOL, ids equal but at near-tied ranks (counted)."""
+    ub, processed, pool_s, pool_i, theta = state
+    kw = dict(block_budget=budget, block_size=index.block_size, n_live=index.n_docs)
+    args = (index.doc_terms, index.doc_weights, qt, qw_raw, ub, processed, pool_s, pool_i, theta)
+    hargs = tuple(a.cpu() for a in args)
+    B = ub.shape[0]
+    if trips is None:
+        got = chunk_ops.chunk_step_batched(*args, live=live, **kw)
+        want = chunk_ref.chunk_step_batched_ref(*hargs, live=host(live), **kw)
+        got, want = got + (torch.ones(B, dtype=torch.int32),), want + (torch.ones(B, dtype=torch.int32),)
+        trips_left = None
+    else:
+        # as the engine: every row that can still move gets the whole budget
+        active = torch.where(processed, float("-inf"), ub).amax(dim=-1) > theta
+        trips_left = torch.where(active, trips, 0).to(torch.int32)
+        got = chunk_ops.chunk_step_multi_batched(*args, trips_left, trips_per_launch=trips,
+                                                 live=live, **kw)
+        want = chunk_ref.chunk_step_multi_batched_ref(*hargs, trips_left.cpu(),
+                                                      trips_per_launch=trips, live=host(live), **kw)
+    sync()
+    got = tuple(t.cpu() for t in got)
+    gs, gi, gth, gpr, gtd = got
+    ws, wi, wth, wpr, wtd = want
+    ok = ((gpr == wpr).all(dim=-1) & (gtd == wtd) & close_rows(gs, ws)
+          & close_rows(gth[:, None], wth[:, None]))
+    bad = ~ok
+    if bool(bad.any()):
+        # the plain trip sequence's thetas, one trip at a time
+        thetas, st = [theta, wth, gth], hargs[4:]
+        for t in range(1 if trips is None else trips):
+            ns, ni, nth, npr = chunk_ref.chunk_step_batched_ref(*hargs[:4], *st, live=host(live),
+                                                                **kw)
+            thetas.append(nth)
+            st = (st[0], npr, ns, ni, nth)
+        tied = near_tie_rows(hargs[4], thetas)
+        check(not bool((bad & ~tied).any()),
+              f"{what}: rows {torch.nonzero(bad & ~tied).flatten().tolist()} differ from the "
+              f"plain version with no block bound near-tied with theta")
+    swaps = tie_swaps(gs[ok], gi[ok], ws[ok], wi[ok], what)
+    rescore(index, qt, qw_raw, gs.to(ub.device), gi.to(ub.device), what, live)
+    fin = torch.isfinite(ws) & ok[:, None]
+    err = float((gs - ws).abs()[fin].max()) if bool(fin.any()) else 0.0
+    row = {"what": what, "max_abs_err": err, "near_tied_rows": int(bad.sum()), "id_swaps": swaps}
+    if timed:
+        # what this data needs: the rows of the live docs of the blocks the
+        # trips scored (4 B per term id, a weight only where the term
+        # matches; the kernel reads no other block), the live bit of every
+        # doc of those blocks, the ub and processed rows, the pool
+        new = (wpr & ~hargs[5]).to(ub.device)
+        blocks = int(new.sum())
+        bs, tmax = index.block_size, index.doc_terms.shape[1]
+        nb, k = ub.shape[1], pool_s.shape[1]
+        needed = []
+        for r in new:
+            d = (torch.nonzero(r) * bs + torch.arange(bs, device=ub.device)).flatten()
+            keep = d < index.n_docs
+            if live is not None:
+                keep &= live[d] != 0
+            needed.append(d[keep])
+        n_rows = sum(len(d) for d in needed)
+        matched = matched_slots((index.doc_terms[d] for d in needed), qt, qw_raw)
+        if trips is None:
+            run_kernel = lambda: chunk_ops.chunk_step_batched(*args, live=live, **kw)  # noqa: E731
+            run_plain = lambda: chunk_ref.chunk_step_batched_ref(*args, live=live, **kw)  # noqa: E731
+        else:
+            run_kernel = lambda: chunk_ops.chunk_step_multi_batched(  # noqa: E731
+                *args, trips_left, trips_per_launch=trips, live=live, **kw)
+            run_plain = lambda: chunk_ref.chunk_step_multi_batched_ref(  # noqa: E731
+                *args, trips_left, trips_per_launch=trips, live=live, **kw)
+        live_bytes = 4 * blocks * bs if live is not None else 0
+        row.update(
+            ms=cuda_ms(run_kernel),
+            plain_ms=cuda_ms(run_plain, iters=2, warmup=1),
+            library_ms=None,
+            bound_ms=1e3 * (4 * n_rows * tmax + 4 * matched + live_bytes + 6 * B * nb
+                            + 16 * B * k) / HBM_BYTES_PER_S,
+            blocks_scored=blocks, doc_rows=n_rows, matched_slots=matched,
+            trips=int(wtd.sum()), shape=[B, nb, k, budget, tmax],
+        )
+    return row
+
+
+def tiny_index(n_docs, block_size, seed, device):
+    """The reference chunk_step contract's index: 40 terms, 1,500 postings."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, n_docs, 1500)
+    t = rng.integers(0, 40, 1500)
+    w = rng.gamma(2.0, 1.0, 1500)
+    return build_impact_index(d, t, w, n_docs, 40, block_size=block_size, device=device)
+
+
+def daat_contract_phases(device, seed) -> dict:
+    """Every DAAT kernel and B=1 wrapper at the reference's contract shapes."""
+    errs = dict.fromkeys(DAAT_KERNELS, 0.0)
+    for i, (name, dims) in enumerate(PRUNE_CASES):
+        prune_phase(prune_inputs(dims, seed + 200 + i, device), dims["nb"], False,
+                    f"contract {name}")
+    for i, (name, dims) in enumerate(BTOPK_CASES):
+        single = "batch" not in dims
+        scores = tied_scores((dims.get("batch", 1), dims["n"]), seed + 300 + i, device)
+        btopk_phase(scores, dims["k"], dims["tile"], single, False, f"contract {name}")
+    for i, (name, dims) in enumerate(SCORE_CASES):
+        row = score_phase(score_inputs(dims, seed + 400 + i, device), "batch" not in dims, False,
+                          f"contract {name}")
+        errs["sparse_score"] = max(errs["sparse_score"], row["max_abs_err"])
+    for i, (name, dims) in enumerate(CHUNK_CASES):
+        index = tiny_index(dims["n_docs"], dims["block_size"], 0, device)
+        rng = np.random.default_rng(seed + 500 + i)
+        qt = torch.as_tensor(rng.integers(0, 40, (dims["B"], dims["lq"])), dtype=torch.int32,
+                             device=device)
+        qw = torch.as_tensor(rng.gamma(1.0, 1.0, (dims["B"], dims["lq"])), dtype=torch.float32,
+                             device=device)
+        live = None
+        if dims.get("live"):
+            live = torch.as_tensor(rng.random(index.doc_terms.shape[0]) < 0.7, dtype=torch.int32,
+                                   device=device)
+        state = phase1_state(index, qt, qw, dims["k"], min(2, index.n_blocks), live)
+        name_k = "chunk_step_multi" if "trips" in dims else "chunk_step"
+        row = chunk_phase(index, qt, qw, state, dims["budget"], live, dims.get("trips"), False,
+                          f"contract {name}")
+        errs[name_k] = max(errs[name_k], row["max_abs_err"])
+    print(f"DAAT contract phases: {len(PRUNE_CASES)} block_prune_csr, {len(BTOPK_CASES)} "
+          f"block_topk, {len(SCORE_CASES)} sparse_score and {len(CHUNK_CASES)} chunk_step shapes "
+          f"agree with their plain versions; max abs err {errs}")
+    return errs
+
+
+def daat_main_shape_phases(index, qt, qw, live) -> dict:
+    """The DAAT kernels at one 64-query batch's shapes: phase 0's CSR
+    windows, selection over the [B, n_blocks] bounds (n = est_blocks and
+    block_budget), the phase-1 gather, and phase-2 trips on the phase-1
+    state, with and without the tombstone bitmap."""
+    mb = max_blocks_per_term(index)
+    B = qt.shape[0]
+    k, est, budget = 10, DAAT_KW["est_blocks"], DAAT_KW["block_budget"]
+    rows = {n: [] for n in DAAT_KERNELS}
+    base, cnt = csr_blockmax_offsets(index, qt, qw, mb)
+    qw_raw = torch.where(qw > 0, qw.float(), 0.0)
+    theta = torch.full((B,), float("-inf"), device=qt.device)
+    rows["block_prune_csr"].append(prune_phase(
+        (index.bm_block, index.bm_weight, base, cnt, qw.float().contiguous(), theta),
+        index.n_blocks, True, f"main B={B}"))
+    ub = block_upper_bounds(index, qt, qw, mb)
+    for n in (budget, est):
+        rows["block_topk"].append(btopk_phase(ub, n, 8192, False, True, f"main B={B} k={n}"))
+    rows["block_topk"].append(btopk_phase(ub[:1], budget, 8192, True, True,
+                                          f"main B=1 k={budget}"))
+    _, b1 = topk(ub, est)
+    docs = (b1.long()[..., None] * index.block_size
+            + torch.arange(index.block_size, device=ub.device)).reshape(B, -1)
+    gathered = (index.doc_terms[docs], index.doc_weights[docs], qt.int().contiguous(),
+                qw_raw.contiguous())
+    rows["sparse_score"].append(score_phase(gathered, False, True, f"main B={B} N={docs.shape[1]}"))
+    rows["sparse_score"].append(score_phase(tuple(g[:1] for g in gathered), True, True,
+                                            f"main B=1 N={docs.shape[1]}"))
+    del gathered
+    qt32 = qt.int().contiguous()
+    for lv in (None, live):
+        state = phase1_state(index, qt, qw, k, est, lv)
+        tag = " live" if lv is not None else ""
+        rows["chunk_step"].append(chunk_phase(index, qt32, qw_raw, state, budget, lv, None, True,
+                                              f"main B={B} k={k}{tag}"))
+        if lv is None:
+            rows["chunk_step_multi"].append(chunk_phase(index, qt32, qw_raw, state, budget, lv, 8,
+                                                        True, f"main B={B} k={k} trips=8"))
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"  {name} {r['what']}: " + json.dumps({k: v for k, v in r.items() if k != "what"}))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the DAAT main path
+# ---------------------------------------------------------------------------
+
+
+def serve_daat(data, n_batches=None, live=None, runs=DAAT_RUNS, modes=DAAT_MODES):
+    """Every batch (or the first ``n_batches``) through ``daat_search_batched``
+    in every mode. Returns the results, the batch latencies in ms (host
+    clock) and the host syncs of each call (one per loop trip, and one to
+    find the loop done)."""
+    results, latency, syncs = {}, {}, {}
+    for m, (index, qt, qw) in data.items():
+        mb = max_blocks_per_term(index)
+        for lo in range(0, qt.shape[0], BATCH)[:n_batches]:
+            bt, bw = qt[lo:lo + BATCH], qw[lo:lo + BATCH]
+            for k, exact in runs:
+                for mode, flags in modes:
+                    multi0 = chunk_ops.MULTI_LAUNCHES
+                    sync()
+                    t0 = time.perf_counter()
+                    res = daat_search_batched(index, bt, bw, k=k, exact=exact, max_bm_per_term=mb,
+                                              live_mask=live, **DAAT_KW, **flags)
+                    sync()
+                    dt = 1e3 * (time.perf_counter() - t0)
+                    key = (m, k, exact, mode)
+                    results[key + (lo,)] = res
+                    latency.setdefault(key, []).append(dt)
+                    if exact:
+                        trips = (chunk_ops.MULTI_LAUNCHES - multi0 if mode == "multi"
+                                 else int(res.chunks.max()))
+                        syncs.setdefault(key, []).append(trips + 1)
+    return results, latency, syncs
+
+
+def near_tie_blocks(ub, theta_a, theta_b):
+    """(block, ub, theta) of the blocks whose bound lies within RTOL of
+    either theta."""
+    out = []
+    for th in (theta_a, theta_b):
+        th = float(th)
+        hit = torch.nonzero(torch.isfinite(ub) & ((ub - th).abs() <= RTOL * abs(th))).flatten()
+        out += [(int(b), float(ub[b]), th) for b in hit[:3]]
+    return out
+
+
+def oracle_topk(index, bt, bw, k, live):
+    """``exhaustive_search``; under a tombstone bitmap, the same with dead
+    docs scored -inf."""
+    if live is None:
+        return exhaustive_search(index, bt, bw, k=k)
+    scores, ids = [], []
+    for qt_, qw_ in zip(bt, bw):
+        s = score_all_docs(index, query_vector(index, qt_, qw_))
+        s, i = topk(torch.where(live != 0, s, float("-inf")), k)
+        scores.append(s)
+        ids.append(i.to(torch.int32))
+    return torch.stack(scores), torch.stack(ids)
+
+
+def verify_daat(data, results, runs=DAAT_RUNS, live=None, modes=("split", "fused", "multi")):
+    """Kernel modes equal each other exactly, and the kernel and plain modes
+    return ids that carry their scores; against the plain mode on the
+    card, scores within RTOL, ids equal but at near-tied ranks, WorkStats
+    equal but for queries with a block bound near-tied with theta; at exact,
+    every query rank-safe and the ids those of ``exhaustive_search``."""
+    swaps, stat_ties, oracle_swaps = 0, 0, 0
+    for m, (index, qt, qw) in data.items():
+        mb = max_blocks_per_term(index)
+        los = sorted({key[-1] for key in results if key[0] == m})
+        oracle = {}
+        for k, exact in runs:
+            for lo in los:
+                bt, bw = qt[lo:lo + BATCH], qw[lo:lo + BATCH]
+                what = f"DAAT {m} k={k} exact={exact}{' live' if live is not None else ''} batch@{lo}"
+                plain = results[(m, k, exact, "plain", lo)]
+                first = results[(m, k, exact, modes[0], lo)]
+                for mode in modes[1:]:
+                    res = results[(m, k, exact, mode, lo)]
+                    for field in DaatResult._fields:
+                        check(torch.equal(getattr(res, field), getattr(first, field)),
+                              f"{what}: {mode} and {modes[0]} differ in {field}")
+                for mode, res in ((modes[0], first), ("plain", plain)):
+                    rescore(index, bt, bw, res.scores, res.doc_ids, f"{what} {mode}", live)
+                swaps += tie_swaps(first.scores, first.doc_ids, plain.scores, plain.doc_ids,
+                                   f"{what} vs plain")
+                differ = torch.zeros(bt.shape[0], dtype=torch.bool, device=bt.device)
+                for field in STAT_FIELDS:
+                    differ |= getattr(first, field) != getattr(plain, field)
+                if bool(differ.any()):
+                    ub = block_upper_bounds(index, bt, bw, mb)
+                    if live is not None:
+                        ub = _mask_dead_blocks(index, ub, live)
+                    for q in torch.nonzero(differ).flatten().tolist():
+                        ties = near_tie_blocks(ub[q].cpu(), first.scores[q, k - 1],
+                                               plain.scores[q, k - 1])
+                        print(f"  {what} query {lo + q}: WorkStats differ from plain mode "
+                              f"({[int(getattr(first, f)[q]) for f in STAT_FIELDS]} vs "
+                              f"{[int(getattr(plain, f)[q]) for f in STAT_FIELDS]}); "
+                              f"near-tied (block, ub, theta): {ties}")
+                        check(bool(ties), f"{what} query {lo + q}: WorkStats differ from plain "
+                                          f"mode with no block bound near-tied with theta")
+                        stat_ties += 1
+                if exact:
+                    for res in (first, plain):
+                        check(bool(res.rank_safe.all()), f"{what}: a query is not rank-safe")
+                    if lo not in oracle:
+                        oracle[lo] = oracle_topk(index, bt, bw, max(kk for kk, _ in runs), live)
+                    o_s, o_i = oracle[lo]
+                    oracle_swaps += tie_swaps(first.scores, first.doc_ids, o_s[:, :k], o_i[:, :k],
+                                              f"{what} vs exhaustive")
+    print(f"verify DAAT: split, fused and multi modes agree exactly; against the plain mode "
+          f"{swaps} ranks differ in id between near-tied scores and {stat_ties} queries differ "
+          f"in WorkStats at a near-tie; against exhaustive_search {oracle_swaps} ranks differ "
+          f"in id between near-tied scores")
+
+
+def daat_stats(data, results) -> None:
+    """The skipping-collapse evidence, per treatment and configuration."""
+    for m, (index, _, _) in data.items():
+        for k, exact in DAAT_RUNS:
+            rs = [r for key, r in results.items() if key[:4] == (m, k, exact, "fused")]
+            chunks = torch.cat([r.chunks for r in rs]).float()
+            scored = torch.cat([r.blocks_scored for r in rs]).float() / index.n_blocks
+            surv = torch.cat([r.n_survivors for r in rs]).float()
+            print(f"DAAT work {m} k={k} exact={exact} over {chunks.numel()} queries: chunks mean "
+                  f"{float(chunks.mean()):.2f} max {int(chunks.max())}; blocks_scored/n_blocks "
+                  f"mean {float(scored.mean()):.4f} max {float(scored.max()):.4f}; n_survivors "
+                  f"mean {float(surv.mean()):.1f} max {int(surv.max())} (n_blocks {index.n_blocks})")
+
+
+def profile_daat_batch(index, bt, bw, k) -> None:
+    """One fused DAAT batch (exact) under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = dict(k=k, exact=True, max_bm_per_term=max_blocks_per_term(index), use_kernels=True,
+              fused_chunk=True, **DAAT_KW)
+    daat_search_batched(index, bt, bw, **kw)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = daat_search_batched(index, bt, bw, **kw)
+        sync()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    avgs = prof.key_averages()
+    kernels = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    print(f"profile DAAT spladev2 k={k} exact fused B={bt.shape[0]} ({int(res.chunks.max())} "
+          f"trips): profiled wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+          f"({100 * busy_us / wall_us:.1f}%)")
+    for what, events in (("operator", ops), ("kernel", kernels)):
+        for e in events[:8]:
+            print(f"  {what} {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:80]}")
+
+
 def run(args, device) -> None:
     t_start = time.perf_counter()
     card = gpu_name_and_limit()
@@ -433,21 +1121,23 @@ def run(args, device) -> None:
                 print(f"  {name}: {line.strip()}")
 
     err_s, err_t = contract_phases(device, args.seed)
+    daat_errs = daat_contract_phases(device, args.seed)
     corpus, data = make_data(args.n_docs, args.n_queries, args.seed, device)
     index, qt, qw = data[MAIN_SHAPE[0]]
     rng = np.random.default_rng(args.seed)
     live = torch.as_tensor(rng.random(index.doc_terms.shape[0]) < 0.9, dtype=torch.int32,
                            device=device)
     rows = main_shape_phases(index, qt[:BATCH], qw[:BATCH], live)
+    rows.update(daat_main_shape_phases(index, qt[:BATCH], qw[:BATCH], live))
 
+    # the SAAT path
     serve(data, n_batches=1)  # warm-up: allocator and sort workspaces at every shape
-    scatter_ops.LAUNCHES = 0
-    fused_ops.LAUNCHES = 0
+    reset_launches()
     results, latency = serve(data)
-    launches = {"impact_scatter": scatter_ops.LAUNCHES, "impact_scatter_topk": fused_ops.LAUNCHES}
-    print(f"main path launches: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    launches = read_launches()
+    print(f"SAAT main path launches: {launches}")
+    for name in SAAT_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the SAAT main path")
 
     rr = verify(data, results, corpus.qrels)
     for key, v in rr.items():
@@ -455,26 +1145,50 @@ def run(args, device) -> None:
     for (m, k, rho, route), v in latency.items():
         print(f"batch latency {m} k={k} rho={rho} {route}: median {np.median(v):.3f} ms, "
               f"max {max(v):.3f} ms over {len(v)} batches (B={BATCH}, host clock)")
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     profile_batch(index, qt[:BATCH], qw[:BATCH], MAIN_SHAPE[1], MAIN_SHAPE[2])
 
-    main = {"impact_scatter": rows["impact_scatter"][0], "impact_scatter_topk": rows["impact_scatter_topk"][0]}
+    # the DAAT path: every batch in every mode, then one batch under the
+    # tombstone bitmap in the fused and multi-trip modes (and plain, to
+    # hold them against)
+    live_modes = tuple(mm for mm in DAAT_MODES if mm[0] in ("plain", "fused", "multi"))
+    live_runs = ((10, True),)
+    serve_daat(data, n_batches=1)  # warm-up, one batch per configuration
+    serve_daat(data, n_batches=1, live=live, runs=live_runs, modes=live_modes)
+    reset_launches()
+    d_results, d_latency, d_syncs = serve_daat(data)
+    l_results, l_latency, _ = serve_daat(data, n_batches=1, live=live, runs=live_runs,
+                                         modes=live_modes)
+    d_launches = read_launches()
+    print(f"DAAT main path launches: {d_launches}")
+    for name in DAAT_KERNELS:
+        check(d_launches[name] > 0, f"kernel {name} was not launched on the DAAT main path")
+    launches.update({name: d_launches[name] for name in DAAT_KERNELS})
+
+    verify_daat(data, d_results)
+    verify_daat(data, l_results, runs=live_runs, live=live, modes=("fused", "multi"))
+    daat_stats(data, d_results)
+    for (m, k, exact, mode), v in d_latency.items():
+        sy = d_syncs.get((m, k, exact, mode))
+        print(f"DAAT batch latency {m} k={k} exact={exact} {mode}: median {np.median(v):.3f} ms, "
+              f"max {max(v):.3f} ms over {len(v)} batches (B={BATCH}, host clock)"
+              + (f"; host syncs per batch {sy}" if sy else ""))
+    for (m, k, exact, mode), v in l_latency.items():
+        print(f"DAAT batch latency {m} k={k} exact={exact} {mode} live: {v[0]:.3f} ms "
+              f"(one batch, B={BATCH}, host clock)")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    profile_daat_batch(index, qt[:BATCH], qw[:BATCH], 10)
+
     errs = {
         "impact_scatter": max([err_s] + [r["max_abs_err"] for r in rows["impact_scatter"]]),
         "impact_scatter_topk": max([err_t] + [r["max_abs_err"] for r in rows["impact_scatter_topk"]]),
     }
-    meta = {
-        "impact_scatter": ("src/repro_torch/csrc/impact_scatter.cu",
-                           "src/repro/kernels/impact_scatter/kernel.py:83"),
-        "impact_scatter_topk": ("src/repro_torch/csrc/impact_scatter_topk.cu",
-                                "src/repro/kernels/impact_scatter_topk/kernel.py:229"),
-    }
+    errs.update({n: max([daat_errs[n]] + [r["max_abs_err"] for r in rows[n]]) for n in DAAT_KERNELS})
     kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name], "ms": main[name]["ms"],
-         "plain_ms": main[name]["plain_ms"], "bound_ms": main[name]["bound_ms"],
-         "bound_by": "bytes", "library_ms": main[name]["library_ms"]}
-        for name, (src, rep) in meta.items()
+        {"name": name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
+         "launches": launches[name], "max_abs_err": errs[name], "ms": rows[name][0]["ms"],
+         "plain_ms": rows[name][0]["plain_ms"], "bound_ms": rows[name][0]["bound_ms"],
+         "bound_by": "bytes", "library_ms": rows[name][0]["library_ms"]}
+        for name, kern in KERNELS.items()
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,28 @@
-"""Impact-quantized learned-sparse retrieval: the index, top-k, anytime SAAT
-and the exhaustive oracle (ports of ``repro.core``).
+"""Impact-quantized learned-sparse retrieval: the index, top-k, anytime SAAT,
+block-max DAAT and the exhaustive oracle (ports of ``repro.core``).
 
     QuantConfig, quantize, dequantize     impact quantization
     ImpactIndex, build_impact_index       impact-ordered index on a device
     index_from_numpy                      a reference index's arrays -> ImpactIndex
     saat_search, exact_rho                anytime SAAT (rho posting budget)
+    daat_search_batched                   block-max DAAT (plain, split, fused, multi-trip)
+    daat_search_vmap / blockmax_search    per-query DAAT, the parity oracle
     exhaustive_search                     rank-safe exhaustive disjunction
 """
+from repro_torch.core.daat import (  # noqa: F401
+    DaatPlan,
+    DaatResult,
+    WorkStats,
+    block_upper_bounds,
+    blockmax_search,
+    csr_blockmax_offsets,
+    daat_plan,
+    daat_search_batched,
+    daat_search_vmap,
+    max_blocks_per_term,
+    query_vectors,
+    score_blocks,
+)
 from repro_torch.core.exhaustive import ExhaustiveResult, exhaustive_search, score_all_docs  # noqa: F401
 from repro_torch.core.impact_index import (  # noqa: F401
     ARRAY_FIELDS,

@@ -23,16 +23,12 @@
 // score, mapped to an unsigned integer of the same order, above
 // 0xFFFFFFFF - local index, so one descending bitonic sort over unique keys
 // orders by score and breaks ties toward the lower doc id, the tie rule of
-// lax.top_k in the reference. The first k threads write the result.
+// lax.top_k in the reference (select_common.cuh). The first k threads write
+// the result.
 #include "scatter_common.cuh"
+#include "select_common.cuh"
 
 namespace {
-
-// An unsigned integer with the same order as the float (-inf lowest).
-__device__ __forceinline__ uint32_t ordered_bits(float f) {
-  const uint32_t u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
 
 __global__ void impact_scatter_topk_kernel(const int* __restrict__ docs,
                                            const float* __restrict__ contribs,
@@ -53,29 +49,12 @@ __global__ void impact_scatter_topk_kernel(const int* __restrict__ docs,
   const bool keep = gid < n_live && (live == nullptr || __ldg(live + gid) != 0);
   const float v = keep ? acc : __int_as_float(0xff800000);  // -inf
   s_val[t] = v;
-  s_key[t] = (static_cast<unsigned long long>(ordered_bits(v)) << 32) |
-             (0xFFFFFFFFu - static_cast<uint32_t>(t));
+  s_key[t] = repro_torch::select_key(v, t);
   __syncthreads();
-
-  // bitonic sort of block_d unique keys, descending
-  for (int size = 2; size <= block_d; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const int partner = t ^ stride;
-      if (partner > t) {
-        const unsigned long long a = s_key[t];
-        const unsigned long long b = s_key[partner];
-        const bool descending = (t & size) == 0;
-        if (descending ? a < b : a > b) {
-          s_key[t] = b;
-          s_key[partner] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  repro_torch::bitonic_sort_desc(s_key, block_d);
 
   if (t < k) {
-    const int idx = static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(s_key[t]));
+    const int idx = repro_torch::key_index(s_key[t]);
     const size_t o = (row * gridDim.x + blockIdx.x) * k + t;
     out_s[o] = s_val[idx];
     out_i[o] = block_start + idx;

@@ -4,6 +4,12 @@
   impact_scatter_topk  fused SAAT scatter and per-block top-k (the
                        accumulator stays on chip; only [B, n_blocks, k]
                        candidates reach device memory)
+  block_prune_csr      DAAT phase 0: block upper bounds off the CSR
+                       block-max lists
+  block_topk           per-tile top-k (stage 1 of the exact two-stage top-k)
+  sparse_score         match-and-accumulate scoring of gathered doc rows
+  chunk_step           the fused DAAT phase-2 trip (select, score, merge),
+                       one trip or up to N trips per launch
 
 Each subpackage holds ``ops.py`` (the wrapper, which launches the kernel
 for CUDA tensors and counts launches) and ``ref.py`` (the plain PyTorch

@@ -28,6 +28,9 @@ NVCC_FLAGS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+# Shared memory one block may use on the H100 (227 KB, opted in above 48 KB).
+SMEM_LIMIT = 232_448
+
 
 def round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
@@ -71,6 +74,10 @@ def sorted_posting_tiles(
     docs = pad_axis(docs, axis, tile_p, fill=n_docs_pad)
     c = pad_axis(c, axis, tile_p, fill=0.0)
     return docs.contiguous(), c.contiguous()
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
 
 
 def check_block_d(block_d: int) -> None:
@@ -161,6 +168,13 @@ def check_cuda_tensors(*tensors: torch.Tensor) -> None:
             raise ValueError(f"kernel inputs must share one CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
+
+
+def check_dtypes(**named: tuple[torch.Tensor, torch.dtype]) -> None:
+    """Each named kernel input has the type its kernel reads."""
+    for name, (t, dtype) in named.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -19,8 +19,12 @@ import torch
 
 from repro_torch.core import ARRAY_FIELDS, META_FIELDS, build_impact_index, index_from_numpy
 from repro_torch.kernels import common
+from repro_torch.kernels.block_prune_csr import ops as prune_ops
+from repro_torch.kernels.block_topk import ops as btopk_ops
+from repro_torch.kernels.chunk_step import ops as chunk_ops
 from repro_torch.kernels.impact_scatter import ops as scatter_ops
 from repro_torch.kernels.impact_scatter_topk import ops as fused_ops
+from repro_torch.kernels.sparse_score import ops as score_ops
 
 pytestmark = pytest.mark.torch_port
 
@@ -53,6 +57,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "repro_torch.kernels.common", "repro_torch.kernels.impact_scatter.ops",
         "repro_torch.kernels.impact_scatter_topk.ops", "repro_torch.models.treatments",
         "repro_torch.data.synthetic", "repro_torch.metrics.ir_metrics",
+        "repro_torch.core.daat", "repro_torch.kernels.block_prune_csr.ops",
+        "repro_torch.kernels.block_prune_csr.ref", "repro_torch.kernels.block_topk.ops",
+        "repro_torch.kernels.block_topk.ref", "repro_torch.kernels.sparse_score.ops",
+        "repro_torch.kernels.sparse_score.ref", "repro_torch.kernels.chunk_step.ops",
+        "repro_torch.kernels.chunk_step.ref",
     }
     assert expected <= set(report["modules"])
 
@@ -110,6 +119,73 @@ def test_kernel_wrappers_never_fall_back_to_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         fused_ops.impact_scatter_topk_batched(docs, c, 100, 5, block_d=64, tile_p=64)
     assert (scatter_ops.LAUNCHES, fused_ops.LAUNCHES) == before
+
+
+def _daat_wrapper_calls(device):
+    """One call of each DAAT kernel wrapper on tiny inputs on ``device``."""
+    z = dict(device=device)
+    i32 = dict(dtype=torch.int32, **z)
+    B, nb, bs, tmax, lq, k = 2, 4, 8, 3, 2, 3
+    store_t = torch.zeros((nb * bs, tmax), **i32)
+    store_w = torch.ones((nb * bs, tmax), **z)
+    qt, qw = torch.zeros((B, lq), **i32), torch.ones((B, lq), **z)
+    ub, proc = torch.ones((B, nb), **z), torch.zeros((B, nb), dtype=torch.bool, **z)
+    ps, pi, th = torch.zeros((B, k), **z), torch.zeros((B, k), **i32), torch.zeros(B, **z)
+    chunk_kw = dict(block_budget=2, block_size=bs, n_live=nb * bs)
+    return {
+        "block_prune_csr": lambda: prune_ops.block_prune_csr_batched(
+            torch.zeros(5, **i32), torch.ones(5, **z), torch.zeros((B, lq), **i32),
+            torch.ones((B, lq), **i32), qw, th, n_blocks=nb, max_bm_per_term=2),
+        "block_topk": lambda: btopk_ops.block_topk_batched(ub, 2),
+        "block_topk_single": lambda: btopk_ops.block_topk(ub[0], 2),
+        "sparse_score": lambda: score_ops.sparse_score_batched(
+            torch.zeros((B, 5, tmax), **i32), torch.ones((B, 5, tmax), **z), qt, qw),
+        "sparse_score_single": lambda: score_ops.sparse_score(
+            torch.zeros((5, tmax), **i32), torch.ones((5, tmax), **z), qt[0], qw[0]),
+        "chunk_step": lambda: chunk_ops.chunk_step_batched(
+            store_t, store_w, qt, qw, ub, proc, ps, pi, th, **chunk_kw),
+        "chunk_step_multi": lambda: chunk_ops.chunk_step_multi_batched(
+            store_t, store_w, qt, qw, ub, proc, ps, pi, th, torch.ones(B, **i32),
+            trips_per_launch=2, **chunk_kw),
+    }
+
+
+def _daat_counters():
+    return (prune_ops.LAUNCHES, btopk_ops.LAUNCHES, score_ops.LAUNCHES, chunk_ops.LAUNCHES,
+            chunk_ops.MULTI_LAUNCHES)
+
+
+@pytest.mark.parametrize("wrapper", list(_daat_wrapper_calls("cpu")))
+def test_daat_kernel_wrappers_never_fall_back_to_the_plain_version(wrapper):
+    """The DAAT wrappers, given tensors off the CPU that no kernel can take,
+    raise without running the plain version or counting a launch."""
+    call = _daat_wrapper_calls("meta")[wrapper]
+    before = _daat_counters()
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    assert _daat_counters() == before
+
+
+@pytest.mark.cuda
+def test_daat_kernel_wrappers_raise_on_cuda_without_a_build(monkeypatch, tmp_path):
+    """On a CUDA tensor with no kernel build the wrapper raises (no nvcc),
+    rather than running the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device to place the inputs on")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(common, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(common, "_LIBS", {})
+    for name, call in _daat_wrapper_calls("cuda").items():
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
+
+
+def test_daat_cpu_wrappers_run_the_plain_version_and_count_nothing():
+    before = _daat_counters()
+    for call in _daat_wrapper_calls("cpu").values():
+        call()
+    assert _daat_counters() == before
 
 
 def test_cpu_wrappers_count_no_launches():
