@@ -32,18 +32,35 @@ It needs one CUDA card and exits non-zero without one. In order:
    kernel modes must agree exactly, the plain mode within tolerance and
    with equal ``WorkStats`` (but at near-ties, printed), and exact results
    must be rank-safe and match ``exhaustive_search``; prints the work
-   counts, batch latencies, host syncs and a profiled batch.
+   counts, batch latencies, host syncs and a profiled batch;
+7. the dense ``block_prune`` on its oracle path: at the reference's
+   contract shapes against its plain version, then on one 64-query
+   ``spladev2`` batch ``_dense_blockmax_rows`` and the kernel, with theta
+   the batch's DAAT k-th scores, ub equal bit for bit to ``block_prune_csr``
+   and to the plain version; timed beside the plain version and
+   ``torch.bmm``;
+8. serving on the ``spladev2`` shard: ``AnytimeServer`` directly (SAAT,
+   fused kernel, the CLI's rho ladder, a deadline under the top level's
+   calibrated cost, every batch equal to ``saat_search`` at the rho served,
+   the ``--eval-qrels`` sweep); through the admission queue on a
+   ``HybridClock`` at the CLI's defaults (1,024 Poisson arrivals, each
+   completion equal to ``saat_search`` on its flush); DAAT served in the
+   fused and 8-trip modes (equal to ``daat_search_batched``); an
+   ``IndexHandle`` under ``replay_with_churn`` with one compaction (answers
+   equal across it, every merged id live and rescored); and
+   ``saat_search_vmap`` with the kernel scatter.
 
 Each path runs with the launch counters set to 0 just before and read just
-after, and fails if one of its kernels was not launched. Last it prints
-the card's name and power limit, one ``{"kernels": [...]}`` JSON line, and
-the ``{"ok": true, ...}`` line.
+after, and fails if one of its kernels was not launched. It prints each
+phase's seconds; last the card's name and power limit, one
+``{"kernels": [...]}`` JSON line, and the ``{"ok": true, ...}`` line.
 
 Any mismatch raises, so the run exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -74,11 +91,14 @@ from repro_torch.core import (  # noqa: E402
     score_all_docs,
     score_blocks,
 )
-from repro_torch.core.daat import _mask_dead_blocks  # noqa: E402
-from repro_torch.core.saat import _gather_postings_batched  # noqa: E402
+from repro_torch.core.daat import _dense_blockmax_rows, _mask_dead_blocks  # noqa: E402
+from repro_torch.core.index_handle import IndexHandle  # noqa: E402
+from repro_torch.core.saat import _gather_postings_batched, saat_search_vmap  # noqa: E402
 from repro_torch.core.topk import topk  # noqa: E402
 from repro_torch.data.synthetic import CorpusConfig, generate_corpus  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.block_prune import ops as dense_prune_ops  # noqa: E402
+from repro_torch.kernels.block_prune import ref as dense_prune_ref  # noqa: E402
 from repro_torch.kernels.block_prune_csr import ops as prune_ops  # noqa: E402
 from repro_torch.kernels.block_prune_csr import ref as prune_ref  # noqa: E402
 from repro_torch.kernels.block_topk import ops as btopk_ops  # noqa: E402
@@ -91,8 +111,27 @@ from repro_torch.kernels.impact_scatter_topk import ops as fused_ops  # noqa: E4
 from repro_torch.kernels.impact_scatter_topk import ref as fused_ref  # noqa: E402
 from repro_torch.kernels.sparse_score import ops as score_ops  # noqa: E402
 from repro_torch.kernels.sparse_score import ref as score_ref  # noqa: E402
-from repro_torch.metrics.ir_metrics import mrr_at_k  # noqa: E402
+from repro_torch.launch.serve import _mutation_schedule  # noqa: E402
+from repro_torch.metrics.ir_metrics import (  # noqa: E402
+    cheapest_rho_within_loss,
+    mrr_at_k,
+    rho_effectiveness_sweep,
+)
+from repro_torch.metrics.latency import HybridClock, SimulatedClock, summarize_latencies  # noqa: E402
 from repro_torch.models.treatments import apply_treatment  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    AdmissionQueue,
+    AnytimeServer,
+    CompactionPolicy,
+    Compactor,
+    ServingConfig,
+    effective_lq,
+    pad_to_width,
+    replay_arrivals,
+    replay_with_churn,
+    run_query_stream,
+    sentinel_rows,
+)
 
 # MS MARCO passage v1 holds 8,841,823 passages; one shard of 32.
 N_DOCS = 276_307
@@ -161,6 +200,30 @@ CHUNK_CASES = (
        ("multi_live_b2_trips3", dict(_CHUNK, B=2, trips=3, budget=3, k=5, live=1)))
 )
 
+# The dense block_prune contract (src/repro/kernels/block_prune/ops.py),
+# copied; the kernel tiles the block axis itself (no block_nb).
+DENSE_PRUNE_CASES = (
+    ("narrow", dict(lq=8, nb=100)),
+    ("wide", dict(lq=32, nb=2048)),
+    ("tiny_ragged", dict(lq=5, nb=17)),
+    ("b1", dict(batch=1, lq=8, nb=100)),
+    ("b4_wide", dict(batch=4, lq=32, nb=2048)),
+    ("b3_tiny", dict(batch=3, lq=5, nb=17)),
+)
+
+# Serving at the defaults of the serving CLI (src/repro_torch/launch/serve.py):
+# the rho ladder (capped at exact by the server), Lq buckets covering the
+# longest query, queue shapes, a 25 ms request deadline, 2,000 qps.
+SERVE_K = 10
+SERVE_LADDER = (100_000, 500_000, 1_000_000, 5_000_000)
+QUEUE_SHAPES = (8, 32)
+QUEUE_DEADLINE_MS = 25.0
+QUEUE_QPS = 2000.0
+QUEUE_SAFETY_MS = 2.0
+QUEUE_REQUESTS = 1024
+CHURN_REQUESTS = 512
+CHURN_MUTATE_QPS = 800.0
+
 # DAAT at the reference's serving defaults (src/repro/serving/scheduler.py)
 DAAT_KW = dict(est_blocks=8, block_budget=16)
 DAAT_RUNS = ((10, True), (10, False), (1000, True))  # (k, exact)
@@ -191,6 +254,12 @@ KERNELS = {
                          "src/repro/kernels/chunk_step/kernel.py:295", "daat"),
     "chunk_step_multi": Kernel(chunk_ops, "MULTI_LAUNCHES", "src/repro_torch/csrc/chunk_step.cu",
                                "src/repro/kernels/chunk_step/kernel.py:375", "daat"),
+    # the dense prune runs on its oracle path only (no engine calls it);
+    # the B=1 entry is a wrapper over the same kernel and counter
+    "block_prune": Kernel(dense_prune_ops, "LAUNCHES", "src/repro_torch/csrc/block_prune.cu",
+                          "src/repro/kernels/block_prune/kernel.py:42", "dense"),
+    "block_prune_b1": Kernel(dense_prune_ops, "LAUNCHES", "src/repro_torch/csrc/block_prune.cu",
+                             "src/repro/kernels/block_prune/kernel.py:74", "dense"),
 }
 SAAT_KERNELS = tuple(n for n, kern in KERNELS.items() if kern.path == "saat")
 DAAT_KERNELS = tuple(n for n, kern in KERNELS.items() if kern.path == "daat")
@@ -1108,8 +1177,483 @@ def profile_daat_batch(index, bt, bw, k) -> None:
             print(f"  {what} {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:80]}")
 
 
+# ---------------------------------------------------------------------------
+# the dense block_prune (B8): its oracle path, phase 0 off densified rows,
+# held bit for bit against the CSR kernel (B3) and the plain version
+# ---------------------------------------------------------------------------
+
+
+def dense_prune_inputs(dims: dict, seed: int, device):
+    """Block maxima with a fifth of the entries 0 (blocks a slot's term
+    misses), one zero-weight slot, thetas at a quantile of the bounds."""
+    rng = np.random.default_rng(seed)
+    B = dims.get("batch", 1)
+    bm = rng.gamma(1.0, 1.0, (B, dims["lq"], dims["nb"])).astype(np.float32)
+    bm[rng.random(bm.shape) < 0.2] = 0.0
+    qw = rng.gamma(1.0, 1.0, (B, dims["lq"])).astype(np.float32)
+    if dims["lq"] > 2:
+        qw[:, 2] = 0.0
+    theta = np.quantile(np.einsum("bl,bln->bn", qw, bm), 0.7, axis=-1).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=device) for a in (bm, qw, theta))
+
+
+def dense_prune_check(got, want, what) -> None:
+    check(torch.equal(got[0].cpu(), want[0].cpu()), f"{what}: ub differs bit for bit")
+    check(torch.equal(got[1].cpu(), want[1].cpu()), f"{what}: mask differs")
+
+
+def dense_prune_phase(index, qt, qw, device, seed) -> dict:
+    """B8 at the reference's contract shapes against its plain version, then
+    on one serving batch: ``_dense_blockmax_rows`` and B8, with theta the
+    batch's DAAT k-th scores; ub equal bit for bit to B3's ub, to
+    ``block_upper_bounds`` and to the plain version, masks equal."""
+    for i, (name, dims) in enumerate(DENSE_PRUNE_CASES):
+        args = dense_prune_inputs(dims, seed + 600 + i, device)
+        want = dense_prune_ref.block_prune_batched_ref(*(a.cpu() for a in args))
+        dense_prune_check(dense_prune_ops.block_prune_launch(*args), want, f"block_prune {name}")
+        if "batch" in dims:
+            got = dense_prune_ops.block_prune_batched(*args)
+        else:
+            got = tuple(t[None] for t in dense_prune_ops.block_prune(args[0][0], args[1][0],
+                                                                     args[2][0]))
+        dense_prune_check(got, want, f"block_prune wrapper {name}")
+    sync()
+    print(f"dense prune contract phase: {len(DENSE_PRUNE_CASES)} shapes equal to the plain "
+          f"version bit for bit")
+
+    mb = max_blocks_per_term(index)
+    B = qt.shape[0]
+    theta = daat_search_batched(index, qt, qw, k=SERVE_K, exact=True, max_bm_per_term=mb,
+                                use_kernels=True, fused_chunk=True,
+                                **DAAT_KW).scores[:, SERVE_K - 1].contiguous()
+    qwf = qw.float().contiguous()
+    dense = _dense_blockmax_rows(index, qt, qw, mb)
+    sync()
+    launches = {}
+    reset_launches()
+    ub, mask = dense_prune_ops.block_prune_batched(dense, qwf, theta)  # the oracle path
+    sync()
+    launches["block_prune"] = dense_prune_ops.LAUNCHES
+    reset_launches()
+    ub1, mask1 = dense_prune_ops.block_prune(dense[0], qwf[0], theta[0])
+    sync()
+    launches["block_prune_b1"] = dense_prune_ops.LAUNCHES
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on its oracle path")
+    base, cnt = csr_blockmax_offsets(index, qt, qw, mb)
+    csr = prune_ops.block_prune_csr_batched(index.bm_block, index.bm_weight, base, cnt, qwf, theta,
+                                            n_blocks=index.n_blocks, max_bm_per_term=mb)
+    dense_prune_check((ub, mask), csr, f"block_prune main B={B} vs block_prune_csr")
+    check(torch.equal(ub, block_upper_bounds(index, qt, qw, mb)),
+          "block_prune main: ub differs from block_upper_bounds")
+    plain = dense_prune_ref.block_prune_batched_ref(dense.cpu(), qwf.cpu(), theta.cpu())
+    dense_prune_check((ub, mask), plain, f"block_prune main B={B} vs plain")
+    dense_prune_check((ub1[None], mask1[None]), (ub[:1], mask[:1]), "block_prune main B=1")
+    surv = mask.sum(dim=-1).float()
+    print(f"dense prune at the serving batch: ub equal bit for bit to block_prune_csr, "
+          f"block_upper_bounds and the plain version; {float(surv.mean()):.1f} of "
+          f"{index.n_blocks} blocks above theta on average")
+
+    rows = {}
+    for name, (bm, w, th) in (("block_prune", (dense, qwf, theta)),
+                              ("block_prune_b1", (dense[:1], qwf[:1], theta[:1]))):
+        b, lq, nb = bm.shape
+        rows[name] = [{
+            "what": f"main B={b}", "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: dense_prune_ops.block_prune_launch(bm, w, th)),
+            "plain_ms": cuda_ms(lambda: dense_prune_ref.block_prune_batched_ref(bm, w, th)),
+            "library_ms": cuda_ms(lambda: torch.bmm(w[:, None], bm)),
+            # each block maximum, weight and theta read once; ub (f32) and
+            # the mask (bool) written once
+            "bound_ms": 1e3 * (4 * b * lq * nb + 4 * b * lq + 4 * b + 5 * b * nb)
+            / HBM_BYTES_PER_S,
+            "shape": [b, lq, nb],
+        }]
+        print(f"  {name} {rows[name][0]['what']}: "
+              + json.dumps({k: v for k, v in rows[name][0].items() if k != "what"}))
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# serving: AnytimeServer directly, through the admission queue, DAAT served,
+# and the mutable index under churn
+# ---------------------------------------------------------------------------
+
+
+def host_batches(qt_np, qw_np, bs):
+    """``run_query_stream``'s batches: fixed size, the last padded with
+    repeats of its last row."""
+    for lo in range(0, qt_np.shape[0], bs):
+        bt, bw = qt_np[lo:lo + bs], qw_np[lo:lo + bs]
+        if bt.shape[0] < bs:
+            pad = bs - bt.shape[0]
+            bt = np.concatenate([bt, np.repeat(bt[-1:], pad, 0)])
+            bw = np.concatenate([bw, np.repeat(bw[-1:], pad, 0)])
+        yield lo, bt, bw
+
+
+def latency_line(stats) -> str:
+    return (f"p50 {stats.p50_ms:.3f} ms, p99 {stats.p99_ms:.3f} ms, max {stats.max_ms:.3f} ms, "
+            f"mean {stats.mean_ms:.3f} ms over {stats.n}")
+
+
+def serve_direct(index, qt_np, qw_np, qrels) -> None:
+    """SAAT through ``AnytimeServer`` (fused kernel) on the serving ladder,
+    with a deadline under the top level's calibrated cost, so the controller
+    serves a lower rho; every batch equal to ``saat_search`` at the rho the
+    server recorded; then the ``--eval-qrels`` sweep."""
+    cfg = ServingConfig(k=SERVE_K, rho_ladder=SERVE_LADDER, batch_size=BATCH, fused_topk=True)
+    server = AnytimeServer(index, cfg)
+    t0 = time.perf_counter()
+    server.warmup(qt_np[:BATCH], qw_np[:BATCH])
+    warm_s = time.perf_counter() - t0
+    pred = {r: server._cost.predict_us(r) / 1e3 for r in server.rho_ladder}  # ms per query
+    top = server.rho_ladder[-1]
+    lower = [r for r in server.rho_ladder[:-1] if pred[r] < pred[top]]
+    check(bool(lower), f"no ladder level is calibrated below the top level: {pred}")
+    deadline = 0.5 * (max(pred[r] for r in lower) + pred[top])
+    server.cfg = dataclasses.replace(cfg, deadline_ms=deadline)
+    print(f"direct serving: ladder {server.rho_ladder}, warm-up {warm_s:.1f} s, calibrated ms "
+          f"per query {json.dumps({str(r): round(v, 5) for r, v in pred.items()})}; deadline "
+          f"{deadline:.5f} ms per query")
+    server.reset_stats()
+    reset_launches()
+    scores, ids = run_query_stream(server, qt_np, qw_np)
+    launches = read_launches()
+    check(launches["impact_scatter_topk"] > 0, "direct serving launched no impact_scatter_topk")
+    stats = server.stats()
+    served = [int(r) for r in server._rhos]
+    check(max(served) < top, f"the controller served the top level under deadline {deadline}")
+    for lo, bt, bw in host_batches(qt_np, qw_np, BATCH):
+        n = min(BATCH, qt_np.shape[0] - lo)
+        res = saat_search(index, bt, bw, k=SERVE_K, rho=served[lo],
+                          max_segs_per_term=server.max_segs, fused_topk=True)
+        check(np.array_equal(res.doc_ids.cpu().numpy()[:n], ids[lo:lo + n]),
+              f"direct serving batch@{lo}: ids differ from saat_search at rho {served[lo]}")
+        check(np.array_equal(res.scores.cpu().numpy()[:n], scores[lo:lo + n]),
+              f"direct serving batch@{lo}: scores differ from saat_search")
+    counts = {str(r): served.count(r) for r in sorted(set(served))}
+    rr = mrr_at_k(ids, qrels, 10)
+    print(f"direct serving: RR@10 {rr:.4f}; served rho (queries) {counts}; per-query latency "
+          f"{latency_line(stats)}; launches {launches}; every batch equals saat_search at its rho")
+    t0 = time.perf_counter()
+    sweep = rho_effectiveness_sweep(server, qt_np, qw_np, qrels, recall_k=SERVE_K,
+                                    batch_size=BATCH)
+    best = cheapest_rho_within_loss(sweep, max_loss=0.03)
+    for row in sweep:
+        print(f"  effectiveness rho={row['rho']}: MRR@10 {row['mrr']:.4f} recall@{SERVE_K} "
+              f"{row['recall']:.4f} NDCG@10 {row['ndcg']:.4f} loss_mrr {row['loss_mrr']:.4f}")
+    print(f"direct serving: rho_within_3pct_mrr_loss {best} (sweep {time.perf_counter() - t0:.1f} s)")
+
+
+def flush_batch(flush, requests, n_terms):
+    """The batch a queue flush served, rebuilt: the requests trimmed to
+    their live width, padded to the lane's bucket over inert sentinel rows."""
+    qt, qw = sentinel_rows(flush.batch_shape, flush.bucket, n_terms)
+    for i, rid in enumerate(flush.rids):
+        t, w = requests[rid]
+        eff = effective_lq(t[None], w[None], n_terms)
+        qt[i], qw[i] = pad_to_width(t[:eff], w[:eff], flush.bucket, n_terms)
+    return qt, qw
+
+
+def serve_queue(index, qt_np, qw_np, qrels, seed) -> None:
+    """SAAT (fused) through the admission queue on a HybridClock: Poisson
+    arrivals at the CLI's defaults, Lq buckets, degradation on; every
+    request completes once, and each equals ``saat_search`` on its flush's
+    batch at the flush's rho."""
+    n_terms = index.n_terms
+    buckets = (8, 16, max(16, qt_np.shape[1]))
+    clock = HybridClock()
+    cfg = ServingConfig(k=SERVE_K, rho_ladder=SERVE_LADDER, batch_size=QUEUE_SHAPES[-1],
+                        fused_topk=True, lq_buckets=buckets)
+    server = AnytimeServer(index, cfg, clock=clock)
+    queue = AdmissionQueue(server, batch_shapes=QUEUE_SHAPES, clock=clock,
+                           safety_ms=QUEUE_SAFETY_MS, degrade_rho=True)
+    t0 = time.perf_counter()
+    server.warmup(qt_np[:8], qw_np[:8], batch_sizes=QUEUE_SHAPES)
+    warm_s = time.perf_counter() - t0
+    server.reset_stats()
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / QUEUE_QPS, size=QUEUE_REQUESTS)
+    arrivals = clock.now() + np.cumsum(gaps)  # the schedule starts after the warm-up
+    order = rng.integers(0, qt_np.shape[0], size=QUEUE_REQUESTS)
+    requests = [(qt_np[i], qw_np[i]) for i in order]
+    reset_launches()
+    t0 = time.perf_counter()
+    comps = replay_arrivals(queue, arrivals.tolist(), [r[0] for r in requests],
+                            [r[1] for r in requests], [QUEUE_DEADLINE_MS] * QUEUE_REQUESTS)
+    replay_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["impact_scatter_topk"] > 0, "queue serving launched no impact_scatter_topk")
+    check(sorted(c.rid for c in comps) == list(range(QUEUE_REQUESTS))
+          and queue.n_completed == QUEUE_REQUESTS, "queue: a request was lost or served twice")
+    by_rid = {c.rid: c for c in comps}
+    exact_ids = np.zeros((QUEUE_REQUESTS, SERVE_K), np.int64)  # what no degradation returns
+    for f in queue.flush_log:
+        bt, bw = flush_batch(f, requests, n_terms)
+        served_ids, top_ids = (
+            saat_search(index, bt, bw, k=SERVE_K, rho=rho, max_segs_per_term=server.max_segs,
+                        fused_topk=True).doc_ids.cpu().numpy()
+            for rho in (f.rho, server.rho_ladder[-1]))
+        exact_ids[list(f.rids)] = top_ids[:len(f.rids)]
+        for i, rid in enumerate(f.rids):
+            check(np.array_equal(by_rid[rid].doc_ids, served_ids[i]),
+                  f"queue flush at {f.flush_s:.4f} s: request {rid} differs from saat_search "
+                  f"at rho {f.rho}")
+    waits = summarize_latencies([c.wait_ms for c in comps])
+    ids = np.stack([by_rid[i].doc_ids for i in range(QUEUE_REQUESTS)])
+    rels = np.asarray(qrels)[order]
+    reasons = {r: sum(1 for f in queue.flush_log if f.reason == r) for r in ("full", "deadline", "drain")}
+    served = {}
+    for c in comps:
+        served[str(c.rho)] = served.get(str(c.rho), 0) + 1
+    by_rho = {}
+    for rho in served:
+        pick = [c.rid for c in comps if str(c.rho) == rho]
+        by_rho[rho] = mrr_at_k(ids[pick], rels[pick], 10)
+    rr = mrr_at_k(ids, rels, 10)
+    rr_exact = mrr_at_k(exact_ids, rels, 10)
+    span = comps[-1].flush_s - arrivals[0] if comps else 0.0
+    print(f"queue serving: {QUEUE_REQUESTS} requests at {QUEUE_QPS:.0f} qps, deadline "
+          f"{QUEUE_DEADLINE_MS} ms, buckets {buckets}, shapes {QUEUE_SHAPES}; warm-up {warm_s:.1f} s, "
+          f"replay {replay_s:.2f} s (clock span {span:.3f} s); {len(queue.flush_log)} flushes "
+          f"{reasons}; violations {queue.n_violations}, infeasible {queue.n_infeasible}, degraded "
+          f"flushes {queue.n_degraded}; served rho (requests) {served}; MRR@10 by served rho "
+          f"{json.dumps({k: round(v, 4) for k, v in by_rho.items()})}; RR@10 {rr:.4f} (the "
+          f"same requests at the exact level: {rr_exact:.4f})")
+    print(f"queue serving: wait {latency_line(waits)}; launches {launches}; every completion "
+          f"equals saat_search on its flush at its rho")
+
+
+DAAT_SERVED = (("fused", 1), ("multi", 8))
+
+
+def serve_daat_phase(index, qt_np, qw_np) -> None:
+    """DAAT through ``AnytimeServer`` (kernels, fused chunk; then 8 trips per
+    launch): every batch's result, WorkStats included, equal to
+    ``daat_search_batched`` called directly."""
+    mb = max_blocks_per_term(index)
+    for mode, trips in DAAT_SERVED:
+        cfg = ServingConfig(engine="daat", k=SERVE_K, batch_size=BATCH, daat_use_kernels=True,
+                            daat_fused_chunk=True, daat_trips_per_launch=trips)
+        server = AnytimeServer(index, cfg)
+        server.warmup(qt_np[:BATCH], qw_np[:BATCH])
+        server.reset_stats()
+        served = []
+        real = server.search_batch
+
+        def capture(q_terms, q_weights, rho=None, real=real, served=served):
+            res = real(q_terms, q_weights, rho=rho)
+            served.append(res)
+            return res
+
+        server.search_batch = capture
+        reset_launches()
+        run_query_stream(server, qt_np, qw_np)
+        launches = read_launches()
+        need = ["block_prune_csr", "block_topk", "sparse_score",
+                "chunk_step" if trips == 1 else "chunk_step_multi"]
+        for name in need:
+            check(launches[name] > 0, f"DAAT served {mode}: kernel {name} was not launched")
+        for (lo, bt, bw), res in zip(host_batches(qt_np, qw_np, BATCH), served, strict=True):
+            want = daat_search_batched(index, bt, bw, k=SERVE_K, max_bm_per_term=mb,
+                                       use_kernels=True, fused_chunk=True, trips_per_launch=trips,
+                                       **DAAT_KW)
+            for field in DaatResult._fields:
+                check(torch.equal(getattr(res, field), getattr(want, field)),
+                      f"DAAT served {mode} batch@{lo}: {field} differs from daat_search_batched")
+        stats = server.stats()
+        chunks = torch.cat([r.chunks for r in served]).float()
+        print(f"DAAT served {mode}: per-query latency {latency_line(stats)}; trips mean "
+              f"{float(chunks.mean()):.2f} max {int(chunks.max())}; launches "
+              f"{ {n: launches[n] for n in need} }; every batch equals daat_search_batched")
+
+
+def one_compaction_threshold(events, n_docs) -> int:
+    """A delta-size threshold at which the compaction policy fires exactly
+    once over the mutation stream: the delta gains a doc with each add and
+    update, loses one when a doc in it is deleted, and empties at a
+    compaction; adds take gids from ``n_docs`` on, as the handle assigns."""
+    def replay(threshold):
+        delta, next_gid, peak, fired = set(), n_docs, 0, 0
+        for ev in events:
+            if ev.op == "add":
+                delta.add(next_gid)
+                next_gid += 1
+            elif ev.op == "update":
+                delta.add(ev.gid)
+            else:
+                delta.discard(ev.gid)
+            peak = max(peak, len(delta))
+            if len(delta) >= threshold:
+                delta, fired = set(), fired + 1
+        return peak, fired
+
+    peak, _ = replay(float("inf"))
+    threshold = max(2, int(np.ceil(0.6 * peak)))
+    check(replay(threshold)[1] == 1, f"no single-compaction threshold at {threshold} (peak {peak})")
+    return threshold
+
+
+def rescore_live(handle, qt, qw, scores, ids, what) -> None:
+    """Each returned gid is live and carries its score on the live corpus:
+    its row in the delta if it is there, else its (untombstoned) row in
+    main, scored by the plain scorer."""
+    main, delta = handle.main, handle.delta
+    fin = torch.isfinite(scores)
+    gid = torch.where(fin, ids, 0).long()
+    check(not (set(gid[fin].tolist()) & handle.dead_gids), f"{what}: a tombstoned gid was returned")
+    qt = torch.as_tensor(qt, device=main.device)
+    qw = torch.as_tensor(qw, device=main.device)
+    qvec = query_vectors(main, qt, qw)
+    rows = torch.arange(qvec.shape[0], device=qvec.device)[:, None, None]
+    in_main = gid < main.doc_terms.shape[0]
+    mg = torch.where(in_main, gid, 0)
+    want = torch.sum(qvec[rows, main.doc_terms[mg].long()] * main.doc_weights[mg], dim=-1)
+    in_delta = torch.zeros_like(fin)
+    if delta is not None:
+        local_of = {int(g): i for i, g in enumerate(handle.delta_gids.tolist()[:handle.delta_docs])}
+        local = torch.tensor([[local_of.get(int(g), -1) for g in row] for row in gid.tolist()],
+                             device=gid.device)
+        in_delta = local >= 0
+        lg = torch.clamp_min(local, 0)
+        dwant = torch.sum(qvec[rows, delta.doc_terms[lg].long()] * delta.doc_weights[lg], dim=-1)
+        want = torch.where(in_delta, dwant, want)
+    live_main = in_main & (handle.live_mask[mg] != 0)
+    check(bool((in_delta | live_main)[fin].all()), f"{what}: a returned gid is not live")
+    bad = fin & ~near(scores.float(), want)
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} merged ids do not carry their scores "
+                               f"on the live corpus")
+
+
+def churn_phase(index, qt_np, qw_np, seed) -> None:
+    """An ``IndexHandle`` over the shard takes ``replay_with_churn`` on a
+    simulated clock: queries through the queue (SAAT fused), a seeded
+    add/update/delete stream, and a threshold compaction that fires once.
+    A fixed batch answers equally just before and just after the fold (SAAT
+    fused at the exact level, and DAAT fused); every flush's merged ids
+    are live and rescored on the live corpus."""
+    handle = IndexHandle(index)
+    n_terms = index.n_terms
+    buckets = (8, 16, max(16, qt_np.shape[1]))
+    clock = SimulatedClock()
+    cfg = ServingConfig(k=SERVE_K, rho_ladder=SERVE_LADDER, batch_size=QUEUE_SHAPES[-1],
+                        fused_topk=True, lq_buckets=buckets)
+    server = AnytimeServer(handle, cfg, clock=clock)
+    queue = AdmissionQueue(server, batch_shapes=QUEUE_SHAPES, clock=clock, safety_ms=QUEUE_SAFETY_MS)
+    server.warmup(qt_np[:8], qw_np[:8], batch_sizes=QUEUE_SHAPES)
+    server.reset_stats()
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / QUEUE_QPS, size=CHURN_REQUESTS))
+    order = rng.integers(0, qt_np.shape[0], size=CHURN_REQUESTS)
+    mutations = _mutation_schedule(np.random.default_rng(seed + 1), index.n_docs, n_terms,
+                                   float(arrivals[-1]), CHURN_MUTATE_QPS)
+    threshold = one_compaction_threshold(mutations, index.n_docs)
+    bt, bw = qt_np[:BATCH], qw_np[:BATCH]
+    checks = {}
+
+    def answers():
+        saat = handle.saat_search(bt, bw, k=SERVE_K, fused_topk=True)
+        daat = handle.daat_search(bt, bw, k=SERVE_K, use_kernels=True, fused_chunk=True, **DAAT_KW)
+        for name, res in (("SAAT", saat), ("DAAT", daat)):
+            rescore_live(handle, bt, bw, res.scores, res.doc_ids, f"churn fixed batch {name}")
+        return saat, daat
+
+    class CheckedCompactor(Compactor):
+        def maybe_compact(self, now_s=None):
+            if not self.policy.due(self.handle):
+                return False
+            before = answers()
+            t0 = time.perf_counter()
+            done = super().maybe_compact(now_s)
+            checks["compact_s"] = time.perf_counter() - t0
+            after = answers()
+            (bs, bd), (as_, ad) = before, after
+            fin = torch.isfinite(bs.scores)
+            check(torch.equal(fin, torch.isfinite(as_.scores))
+                  and torch.equal(bs.doc_ids[fin], as_.doc_ids[fin]),
+                  "churn: SAAT answers differ just before and just after the compaction")
+            max_err(as_.scores, bs.scores, "churn: SAAT scores across the compaction")
+            checks["daat_swaps"] = tie_swaps(ad.scores, ad.doc_ids, bd.scores, bd.doc_ids,
+                                             "churn: DAAT across the compaction")
+            checks["generation"] = self.handle.generation
+            return done
+
+    real = server.search_batch
+    n_flushes = [0]
+
+    def checked(q_terms, q_weights, rho=None):
+        res = real(q_terms, q_weights, rho=rho)
+        rescore_live(handle, q_terms, q_weights, res.scores, res.doc_ids,
+                     f"churn flush {n_flushes[0]}")
+        n_flushes[0] += 1
+        return res
+
+    server.search_batch = checked
+    compactor = CheckedCompactor(queue, handle, CompactionPolicy(max_delta_docs=threshold))
+    reset_launches()
+    t0 = time.perf_counter()
+    comps, mlog = replay_with_churn(
+        queue, handle, arrivals.tolist(), [qt_np[i] for i in order], [qw_np[i] for i in order],
+        [QUEUE_DEADLINE_MS] * CHURN_REQUESTS, mutations, compactor=compactor)
+    replay_s = time.perf_counter() - t0
+    launches = read_launches()
+    for name in ("impact_scatter_topk", "block_prune_csr", "block_topk", "sparse_score",
+                 "chunk_step"):
+        check(launches[name] > 0, f"churn: kernel {name} was not launched")
+    check(compactor.n_compactions == 1 and handle.generation == 1,
+          f"churn: {compactor.n_compactions} compactions, expected exactly one")
+    check(sorted(c.rid for c in comps) == list(range(CHURN_REQUESTS)),
+          "churn: a request was lost or served twice")
+    gens = [f.generation for f in queue.flush_log]
+    check(gens == sorted(gens), "churn: flush generations are not monotone")
+    ops = {op: sum(1 for m in mlog if m["op"] == op) for op in ("add", "update", "delete")}
+    print(f"churn: {CHURN_REQUESTS} requests and {len(mlog)} mutations {ops} over "
+          f"{float(arrivals[-1]):.3f} s (simulated); compaction at delta {threshold} docs fired "
+          f"once, {checks['compact_s']:.1f} s (host fold and build, then upload); flush "
+          f"generations {min(gens)}..{max(gens)} over {len(gens)} flushes; replay "
+          f"{replay_s:.1f} s; fixed batch equal across the compaction (DAAT "
+          f"{checks['daat_swaps']} ranks differ between near-tied scores); every flush's ids "
+          f"live and rescored; launches {launches}")
+
+
+def vmap_phase(index, qt, qw) -> None:
+    """``saat_search_vmap`` with the kernel scatter (the B=1 wrapper, one
+    launch per query) on one batch: ids equal to ``saat_search``'s."""
+    ms = max_segments_per_term(index)
+    reset_launches()
+    res = saat_search_vmap(index, qt, qw, k=SERVE_K, rho=1_000_000, max_segs_per_term=ms,
+                           scatter_impl="kernel")
+    sync()
+    launches = scatter_ops.LAUNCHES
+    check(launches >= qt.shape[0], f"saat_search_vmap: {launches} impact_scatter launches for "
+                                   f"{qt.shape[0]} queries")
+    want = saat_search(index, qt, qw, k=SERVE_K, rho=1_000_000, max_segs_per_term=ms,
+                       scatter_impl="kernel")
+    ids_equal(res.doc_ids, want.doc_ids, "saat_search_vmap vs saat_search")
+    check(torch.equal(res.scores, want.scores), "saat_search_vmap: scores differ")
+    print(f"saat_search_vmap (kernel) B={qt.shape[0]} rho=1M: {launches} impact_scatter launches "
+          f"(B=1 wrapper); ids and scores equal to saat_search")
+
+
+class PhaseClock:
+    """Seconds of each phase, printed as each ends."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.t0 = time.perf_counter()
+
+    def end(self, name: str) -> None:
+        t = time.perf_counter()
+        self.seconds[name] = t - self.t0
+        print(f"[phase {name}: {t - self.t0:.1f} s]")
+        self.t0 = t
+
+
 def run(args, device) -> None:
     t_start = time.perf_counter()
+    phase = PhaseClock()
     card = gpu_name_and_limit()
     print(card)
     t0 = time.perf_counter()
@@ -1119,16 +1663,20 @@ def run(args, device) -> None:
         for line in log.splitlines():
             if "registers" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    phase.end("kernel build")
 
     err_s, err_t = contract_phases(device, args.seed)
     daat_errs = daat_contract_phases(device, args.seed)
+    phase.end("kernel contracts")
     corpus, data = make_data(args.n_docs, args.n_queries, args.seed, device)
+    phase.end("corpus and index builds")
     index, qt, qw = data[MAIN_SHAPE[0]]
     rng = np.random.default_rng(args.seed)
     live = torch.as_tensor(rng.random(index.doc_terms.shape[0]) < 0.9, dtype=torch.int32,
                            device=device)
     rows = main_shape_phases(index, qt[:BATCH], qw[:BATCH], live)
     rows.update(daat_main_shape_phases(index, qt[:BATCH], qw[:BATCH], live))
+    phase.end("kernels at the main shapes")
 
     # the SAAT path
     serve(data, n_batches=1)  # warm-up: allocator and sort workspaces at every shape
@@ -1146,6 +1694,7 @@ def run(args, device) -> None:
         print(f"batch latency {m} k={k} rho={rho} {route}: median {np.median(v):.3f} ms, "
               f"max {max(v):.3f} ms over {len(v)} batches (B={BATCH}, host clock)")
     profile_batch(index, qt[:BATCH], qw[:BATCH], MAIN_SHAPE[1], MAIN_SHAPE[2])
+    phase.end("SAAT path")
 
     # the DAAT path: every batch in every mode, then one batch under the
     # tombstone bitmap in the fused and multi-trip modes (and plain, to
@@ -1175,14 +1724,34 @@ def run(args, device) -> None:
     for (m, k, exact, mode), v in l_latency.items():
         print(f"DAAT batch latency {m} k={k} exact={exact} {mode} live: {v[0]:.3f} ms "
               f"(one batch, B={BATCH}, host clock)")
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     profile_daat_batch(index, qt[:BATCH], qw[:BATCH], 10)
+    phase.end("DAAT path")
+
+    # the dense prune's oracle path, then serving on the spladev2 shard
+    dense_rows, dense_launches = dense_prune_phase(index, qt[:BATCH], qw[:BATCH], device, args.seed)
+    rows.update(dense_rows)
+    launches.update(dense_launches)
+    phase.end("dense block_prune")
+    qt_np, qw_np = qt.cpu().numpy(), qw.cpu().numpy()
+    qrels = np.asarray(corpus.qrels)
+    serve_direct(index, qt_np, qw_np, qrels)
+    phase.end("direct serving")
+    serve_queue(index, qt_np, qw_np, qrels, args.seed)
+    phase.end("queue serving")
+    serve_daat_phase(index, qt_np, qw_np)
+    phase.end("DAAT served")
+    churn_phase(index, qt_np, qw_np, args.seed)
+    phase.end("churn")
+    vmap_phase(index, qt[:BATCH], qw[:BATCH])
+    phase.end("saat_search_vmap")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     errs = {
         "impact_scatter": max([err_s] + [r["max_abs_err"] for r in rows["impact_scatter"]]),
         "impact_scatter_topk": max([err_t] + [r["max_abs_err"] for r in rows["impact_scatter_topk"]]),
     }
     errs.update({n: max([daat_errs[n]] + [r["max_abs_err"] for r in rows[n]]) for n in DAAT_KERNELS})
+    errs.update({n: 0.0 for n in ("block_prune", "block_prune_b1")})  # equal bit for bit
     kernels = [
         {"name": name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
          "launches": launches[name], "max_abs_err": errs[name], "ms": rows[name][0]["ms"],
@@ -1190,6 +1759,7 @@ def run(args, device) -> None:
          "bound_by": "bytes", "library_ms": rows[name][0]["library_ms"]}
         for name, kern in KERNELS.items()
     ]
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase.seconds.items()})}")
     print(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,13 @@ block-max DAAT and the exhaustive oracle (ports of ``repro.core``).
     ImpactIndex, build_impact_index       impact-ordered index on a device
     index_from_numpy                      a reference index's arrays -> ImpactIndex
     saat_search, exact_rho                anytime SAAT (rho posting budget)
+    saat_search_vmap                      per-query SAAT, the parity oracle
     daat_search_batched                   block-max DAAT (plain, split, fused, multi-trip)
     daat_search_vmap / blockmax_search    per-query DAAT, the parity oracle
     exhaustive_search                     rank-safe exhaustive disjunction
+
+``repro_torch.core.index_handle`` (the mutable index) is imported on its
+own: it builds on the engines.
 """
 from repro_torch.core.daat import (  # noqa: F401
     DaatPlan,
@@ -48,5 +52,6 @@ from repro_torch.core.saat import (  # noqa: F401
     max_segments_per_term,
     saat_plan,
     saat_search,
+    saat_search_vmap,
 )
 from repro_torch.core.topk import merge_pools_by_id, merge_topk, tiled_topk, topk  # noqa: F401

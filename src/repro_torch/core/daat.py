@@ -36,7 +36,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.impact_index import ImpactIndex, query_vector
+from repro_torch.core.impact_index import ImpactIndex, queries_on_device, query_vector
 from repro_torch.core.topk import merge_topk, topk
 from repro_torch.kernels.block_prune_csr import ops as prune_ops
 from repro_torch.kernels.block_topk import ops as topk_ops
@@ -153,6 +153,29 @@ def block_upper_bounds(
     return ub[0] if one else ub
 
 
+def _dense_blockmax_rows(
+    index: ImpactIndex, q_terms: torch.Tensor, q_weights: torch.Tensor, max_bm_per_term: int
+) -> torch.Tensor:
+    """Densify the per-(query, slot) block-max lists: ``f32[B, Lq, n_blocks]``.
+
+    Raw block maxima (query weight not applied): the ``[Lq, NB]`` layout
+    the dense ``block_prune`` kernel contracts with ``q_weights``. Pad and
+    zero-weight slots densify to empty rows, so they add exactly 0 to the
+    bound, as in :func:`block_upper_bounds`. The layout is ``Lq`` times the
+    size of the CSR lists, which is why phase 0 runs off the lists
+    (``block_prune_csr``); this is the dense kernel's input, for its oracle
+    role. A block appears at most once in a slot's list and the invalid
+    entries add 0, so the scatter is exact in any order.
+    """
+    blocks, w = _gather_blockmax_lists(index, q_terms, q_weights, max_bm_per_term)
+    B, lq = q_terms.shape
+    nb = index.n_blocks
+    rows = torch.arange(B * lq, device=w.device).view(B, lq, 1) * nb
+    dense = torch.zeros(B * lq * nb, dtype=torch.float32, device=w.device)
+    dense.index_add_(0, (rows + blocks).reshape(-1), w.reshape(-1))
+    return dense.view(B, lq, nb)
+
+
 def daat_plan(
     index: ImpactIndex, q_terms: torch.Tensor, q_weights: torch.Tensor, max_bm_per_term: int
 ) -> DaatPlan:
@@ -240,15 +263,6 @@ def _resolve_daat_shapes(
     return est_blocks, block_budget, max_chunks
 
 
-def _as_queries(index: ImpactIndex, q_terms, q_weights, live_mask):
-    dev = index.device
-    q_terms = torch.as_tensor(q_terms, device=dev)
-    q_weights = torch.as_tensor(q_weights, device=dev)
-    if live_mask is not None:
-        live_mask = torch.as_tensor(live_mask, device=dev)
-    return q_terms, q_weights, live_mask
-
-
 def _daat_one(index, qt, qw, *, k, est_blocks, block_budget, max_bm_per_term, exact,
               max_chunks, live_mask):
     """One query through phases 0-2 (the body of :func:`daat_search_vmap`)."""
@@ -299,7 +313,7 @@ def daat_search_vmap(
     """Block-max DAAT one query at a time: the parity oracle of
     :func:`daat_search_batched` (the reference's ``jax.vmap`` of one query,
     as a loop). ``q_terms/q_weights: [B, Lq]``."""
-    q_terms, q_weights, live_mask = _as_queries(index, q_terms, q_weights, live_mask)
+    q_terms, q_weights, live_mask = queries_on_device(index, q_terms, q_weights, live_mask)
     est_blocks, block_budget, max_chunks = _resolve_daat_shapes(
         index, k, est_blocks, block_budget, max_chunks
     )
@@ -314,6 +328,15 @@ def daat_search_vmap(
 
 # The reference's historical name.
 blockmax_search = daat_search_vmap
+
+
+# The keyword arguments that shape a batched search: the serving layer's
+# ``executable_key`` names a dispatch by these, as the reference names its
+# jit cache entry (the reference passes this tuple to ``jax.jit``).
+DAAT_STATICS = (
+    "k", "est_blocks", "block_budget", "max_bm_per_term", "exact", "max_chunks",
+    "use_kernels", "fused_chunk", "trips_per_launch",
+)
 
 
 def daat_search_batched(
@@ -345,7 +368,7 @@ def daat_search_batched(
     nonzero = live, shared by the batch): fully dead blocks leave selection
     after phase 0 and dead docs score ``-inf``, in every mode.
     """
-    q_terms, q_weights, live_mask = _as_queries(index, q_terms, q_weights, live_mask)
+    q_terms, q_weights, live_mask = queries_on_device(index, q_terms, q_weights, live_mask)
     if q_terms.ndim != 2:
         raise ValueError(f"expected [B, Lq] query batch, got shape {tuple(q_terms.shape)}")
     if fused_chunk and not use_kernels:

@@ -367,6 +367,17 @@ def extract_doc_coo(
     return d.astype(np.int64), dt[d, slot].astype(np.int64), dw[d, slot].astype(np.float64)
 
 
+def queries_on_device(index: ImpactIndex, q_terms, q_weights, live_mask=None):
+    """Queries (tensors or arrays) and an optional tombstone bitmap as
+    tensors on the index's device: what every engine entry point takes."""
+    dev = index.device
+    q_terms = torch.as_tensor(q_terms, device=dev)
+    q_weights = torch.as_tensor(q_weights, device=dev)
+    if live_mask is not None:
+        live_mask = torch.as_tensor(live_mask, device=dev)
+    return q_terms, q_weights, live_mask
+
+
 def query_vector(
     index: ImpactIndex, q_terms: torch.Tensor, q_weights: torch.Tensor
 ) -> torch.Tensor:

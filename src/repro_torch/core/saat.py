@@ -23,7 +23,10 @@ which fuses the top-k into the scatter: only per-block candidates reach
 device memory, and ``scatter_impl`` is ignored. On CPU tensors both kernel
 routes run their plain PyTorch versions.
 
-``saat_search_vmap`` (the per-query oracle) is not ported yet.
+``saat_search_vmap`` runs the same search one query at a time (the
+reference's ``jax.vmap`` of one query, as a loop): the parity oracle of the
+batched engine, whose ``"kernel"`` route is the single-query
+``impact_scatter`` wrapper.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.impact_index import ImpactIndex
+from repro_torch.core.impact_index import ImpactIndex, queries_on_device
 from repro_torch.core.topk import topk
 from repro_torch.kernels.impact_scatter import ops as scatter_ops
 from repro_torch.kernels.impact_scatter_topk import ops as fused_ops
@@ -122,6 +125,40 @@ def _gather_postings_batched(
     return docs, contribs, n_processed
 
 
+def _gather_postings(
+    index: ImpactIndex, plan: SaatPlan, rho: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-query form of :func:`_gather_postings_batched`: posting slots
+    [0, rho) of one ``[n_cand]`` plan -> ``(doc_id, contribution,
+    n_processed)``."""
+    p = torch.arange(rho, dtype=torch.int32, device=plan.cum_len.device)
+    j = torch.searchsorted(plan.cum_len, p, right=True)
+    j = torch.clamp_max(j, plan.cum_len.shape[0] - 1)
+    prev = torch.where(j > 0, plan.cum_len[torch.clamp_min(j - 1, 0)], 0)
+    pidx = plan.starts[j] + (p - prev)
+    valid = p < plan.total_postings
+    docs = torch.where(valid, index.doc_ids[torch.where(valid, pidx, 0).long()], 0)
+    contribs = torch.where(valid, plan.contribs[j], 0.0)
+    n_processed = torch.clamp_max(plan.total_postings, rho).to(torch.int32)
+    return docs, contribs, n_processed
+
+
+def _accumulate(index: ImpactIndex, docs: torch.Tensor, contribs: torch.Tensor,
+                scatter_impl: str) -> torch.Tensor:
+    """Single-query scatter: ``docs/contribs [rho]`` -> ``acc [n_docs_pad]``."""
+    n_docs_pad = index.doc_terms.shape[0]
+    if scatter_impl == "scatter":
+        acc = torch.zeros(n_docs_pad, dtype=torch.float32, device=docs.device)
+        return acc.index_add_(0, docs.long(), contribs)
+    if scatter_impl == "sort":
+        sd, order = torch.sort(docs, stable=True)
+        acc = torch.zeros(n_docs_pad, dtype=torch.float32, device=docs.device)
+        return acc.index_add_(0, sd.long(), contribs[order])
+    if scatter_impl == "kernel":
+        return scatter_ops.impact_scatter(docs, contribs, n_docs_pad)
+    raise ValueError(f"unknown scatter_impl {scatter_impl!r}; choose from {SCATTER_IMPLS}")
+
+
 def _index_add_rows(docs: torch.Tensor, contribs: torch.Tensor, n_docs_pad: int) -> torch.Tensor:
     B = docs.shape[0]
     keys = docs.long() + torch.arange(B, device=docs.device)[:, None] * n_docs_pad
@@ -155,6 +192,12 @@ def _mask_pad_docs(
     return torch.where(live, acc, float("-inf"))
 
 
+# The keyword arguments that shape a batched search: the serving layer's
+# ``executable_key`` names a dispatch by these, as the reference names its
+# jit cache entry (the reference passes this tuple to ``jax.jit``).
+SAAT_STATICS = ("k", "rho", "max_segs_per_term", "scatter_impl", "fused_topk")
+
+
 def saat_search(
     index: ImpactIndex,
     q_terms,
@@ -176,15 +219,19 @@ def saat_search(
     ``live_mask`` is the tombstone gate: an i32/bool ``[n_docs_pad]`` bitmap
     (nonzero = live) ANDed into the pad mask, so tombstoned docs score
     ``-inf``. The accumulation is untouched.
+
+    At the exact level (``rho >= index.n_postings``) the gather stops at the
+    batch's largest candidate total (one host read): slots past a query's
+    total carry nothing, and eager PyTorch keeps no static shapes, so the
+    results are unchanged while the ``[B, n_postings]`` arrays of an exact
+    budget never reach the device's memory.
     """
-    dev = index.device
-    q_terms = torch.as_tensor(q_terms, device=dev)
-    q_weights = torch.as_tensor(q_weights, device=dev)
+    q_terms, q_weights, live_mask = queries_on_device(index, q_terms, q_weights, live_mask)
     if q_terms.ndim != 2:
         raise ValueError(f"expected [B, Lq] query batch, got shape {tuple(q_terms.shape)}")
-    if live_mask is not None:
-        live_mask = torch.as_tensor(live_mask, device=dev)
     plan = saat_plan(index, q_terms, q_weights, max_segs_per_term)
+    if rho >= index.n_postings:
+        rho = min(rho, max(1, int(plan.total_postings.max())))
     docs, contribs, n_proc = _gather_postings_batched(index, plan, rho)
     if fused_topk:
         scores, ids = fused_ops.impact_scatter_topk_batched(
@@ -194,6 +241,34 @@ def saat_search(
         acc = _accumulate_batched(index, docs, contribs, scatter_impl)
         scores, ids = topk(_mask_pad_docs(index, acc, live_mask), k)
     return SaatResult(scores, ids.to(torch.int32), n_proc, plan.total_postings)
+
+
+def saat_search_vmap(
+    index: ImpactIndex,
+    q_terms,
+    q_weights,
+    *,
+    k: int,
+    rho: int,
+    max_segs_per_term: int,
+    scatter_impl: str = "scatter",
+    live_mask: torch.Tensor | None = None,
+) -> SaatResult:
+    """Anytime SAAT one query at a time: the parity oracle of
+    :func:`saat_search` (the reference's ``jax.vmap`` of one query, as a
+    loop), with the same ``scatter_impl`` names and the same ``live_mask``,
+    shared by the batch. ``q_terms/q_weights: [B, Lq]``."""
+    q_terms, q_weights, live_mask = queries_on_device(index, q_terms, q_weights, live_mask)
+    if q_terms.ndim != 2:
+        raise ValueError(f"expected [B, Lq] query batch, got shape {tuple(q_terms.shape)}")
+    rows = []
+    for qt, qw in zip(q_terms, q_weights):
+        plan = saat_plan(index, qt, qw, max_segs_per_term)
+        docs, contribs, n_proc = _gather_postings(index, plan, rho)
+        acc = _accumulate(index, docs, contribs, scatter_impl)
+        scores, ids = topk(_mask_pad_docs(index, acc, live_mask), k)
+        rows.append(SaatResult(scores, ids.to(torch.int32), n_proc, plan.total_postings))
+    return SaatResult(*(torch.stack(field) for field in zip(*rows)))
 
 
 def exact_rho(index: ImpactIndex) -> int:

@@ -10,6 +10,8 @@
   sparse_score         match-and-accumulate scoring of gathered doc rows
   chunk_step           the fused DAAT phase-2 trip (select, score, merge),
                        one trip or up to N trips per launch
+  block_prune          the dense block bound and prune over [B, Lq, NB]
+                       block maxima: block_prune_csr's oracle
 
 Each subpackage holds ``ops.py`` (the wrapper, which launches the kernel
 for CUDA tensors and counts launches) and ``ref.py`` (the plain PyTorch

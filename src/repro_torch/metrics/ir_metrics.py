@@ -1,19 +1,47 @@
-"""IR effectiveness metrics and the direct rho-degradation sweep.
+"""IR effectiveness metrics and the rho-degradation effectiveness harness.
 
 Point metrics: RR@10 (the paper's official metric), Recall@k, NDCG@k, and
-top-k overlap. On top of them :func:`rho_effectiveness_sweep` serves a
-labeled query set directly at every ladder level and reports per-rho
-Recall@k/MRR/NDCG plus relative loss against the exhaustive (max-rho) level.
+top-k overlap. On top of them this module quantifies the paper's serving
+trade — *what does each rho level cost in effectiveness?* — two ways:
 
-numpy only. The server-taking helpers are duck-typed: a server needs
-``search_batch(q_terms, q_weights, rho=)`` returning an object with
-``doc_ids``, ``cfg.batch_size`` and ``rho_ladder``. The queue-replay arm of
-the reference harness (``replay_effectiveness``, ``effectiveness_surface``)
-arrives with the port's admission queue.
+  * :func:`rho_effectiveness_sweep` serves a labeled query set directly at
+    every ladder level and reports per-rho Recall@k/MRR/NDCG plus relative
+    loss against the exhaustive (max-rho) level;
+  * :func:`replay_effectiveness` / :func:`effectiveness_surface` push the
+    same labeled set through a continuous-batching
+    :class:`~repro_torch.serving.queue.AdmissionQueue` *under load*, so the rho
+    each query was actually served at is decided by the deadline-driven
+    flush policy (``degrade_rho``), and effectiveness is accounted per
+    served level — the effectiveness-vs-rho-vs-deadline surface behind the
+    paper's "≤3% loss buys large mean/tail gains" claim.
+
+Qrels replay format
+-------------------
+A labeled replay is four parallel sequences, one entry per request ``i``
+(request ``i`` gets rid ``i``, so completions re-align by rid):
+
+  * ``arrivals_s[i]``   — arrival instant (seconds, clock domain), ascending;
+  * ``q_terms_list[i]`` / ``q_weights_list[i]`` — the ragged query (int term
+    ids / float weights, trailing padding allowed);
+  * ``qrels[i]``        — the single relevant doc id (MS MARCO style). The
+    point metrics also accept ``[n_queries, R]`` graded qrels with ``-1``
+    padding (see :func:`ndcg_at_k`), but the replay harness keys its
+    per-rho grouping on the 1-D form.
+
+Queries are replayed on the queue's injectable clock: a
+:class:`~repro_torch.metrics.latency.SimulatedClock` makes the whole surface a
+deterministic function of the schedule (CI), a
+:class:`~repro_torch.metrics.latency.HybridClock` keeps the scripted arrivals but
+accrues real measured service time (load rehearsal).
+
+The port of ``repro.metrics.ir_metrics`` (numpy only). The server-taking
+helpers are duck-typed: a server needs ``search_batch(q_terms, q_weights,
+rho=)`` returning an object with ``doc_ids``, ``cfg.batch_size`` and
+``rho_ladder``; a result on the device comes back to the host here.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -223,3 +251,122 @@ def cheapest_rho_within_loss(
         return int(min(fits, key=lambda r: r["rho"])["rho"])
     exact_rows = [r for r in rows if r.get("exact")] or rows
     return int(max(exact_rows, key=lambda r: r["rho"])["rho"])
+
+
+def replay_effectiveness(
+    queue,
+    arrivals_s: Sequence[float],
+    q_terms_list: Sequence[np.ndarray],
+    q_weights_list: Sequence[np.ndarray],
+    deadlines_ms: Sequence[float],
+    qrels: np.ndarray,
+    *,
+    recall_k: int = 100,
+    mrr_k: int = 10,
+    ndcg_k: int = 10,
+) -> dict:
+    """Push a labeled arrival schedule through an AdmissionQueue and account
+    effectiveness per rho level *actually served* (see the module docstring
+    for the replay format).
+
+    The flush policy — not the caller — decides each request's budget, so
+    under overload with ``degrade_rho=True`` the report shows exactly what
+    the SLO cost: which fraction of traffic was degraded, to which levels,
+    and what each level scored on the labels. Returns one surface row::
+
+        {"n_requests", "violations", "infeasible", "degraded_flushes",
+         "wait_ms": {...percentiles...}, "overall": {metric triple},
+         "by_rho": [{"rho", "n_queries", ...metric triple...}, ...]}
+    """
+    from repro_torch.metrics.latency import summarize_latencies  # lazy: no cycle
+    from repro_torch.serving.queue import replay_arrivals
+
+    rels = np.asarray(qrels)
+    if rels.ndim != 1:
+        raise ValueError(
+            f"replay harness needs 1-D single-relevant qrels, got {rels.shape}"
+        )
+    if len(arrivals_s) != rels.shape[0]:
+        raise ValueError(
+            f"{len(arrivals_s)} arrivals vs {rels.shape[0]} qrels entries"
+        )
+    comps = replay_arrivals(queue, arrivals_s, q_terms_list, q_weights_list, deadlines_ms)
+    comps = sorted(comps, key=lambda c: c.rid)
+    if not comps:
+        # an empty schedule served nothing at any rho: a well-formed all-zero
+        # report, not an np.stack([]) crash deep in the accounting
+        return {
+            "n_requests": 0,
+            "violations": queue.n_violations,
+            "infeasible": queue.n_infeasible,
+            "degraded_flushes": queue.n_degraded,
+            "wait_ms": {k: round(v, 4) for k, v in summarize_latencies([]).row().items()},
+            "overall": effectiveness_report(
+                np.zeros((0, 1), np.int32), rels[:0],
+                recall_k=recall_k, mrr_k=mrr_k, ndcg_k=ndcg_k,
+            ),
+            "by_rho": [],
+        }
+    ids = np.stack([c.doc_ids for c in comps])
+    served_rho = [c.rho for c in comps]
+    waits = summarize_latencies([c.wait_ms for c in comps])
+    by_rho = []
+    for rho in sorted({r for r in served_rho if r is not None}):
+        pick = np.asarray([r == rho for r in served_rho])
+        if not pick.any():
+            continue  # a level nothing completed at contributes no row
+        by_rho.append(
+            {
+                "rho": int(rho),
+                "n_queries": int(pick.sum()),
+                **effectiveness_report(
+                    ids[pick], rels[pick], recall_k=recall_k, mrr_k=mrr_k, ndcg_k=ndcg_k
+                ),
+            }
+        )
+    return {
+        "n_requests": len(comps),
+        "violations": queue.n_violations,
+        "infeasible": queue.n_infeasible,
+        "degraded_flushes": queue.n_degraded,
+        "wait_ms": {k: round(v, 4) for k, v in waits.row().items()},
+        "overall": effectiveness_report(
+            ids, rels, recall_k=recall_k, mrr_k=mrr_k, ndcg_k=ndcg_k
+        ),
+        "by_rho": by_rho,
+    }
+
+
+def effectiveness_surface(
+    queue_factory: Callable[[float], object],
+    deadlines_ms: Sequence[float],
+    arrivals_s: Sequence[float],
+    q_terms_list: Sequence[np.ndarray],
+    q_weights_list: Sequence[np.ndarray],
+    qrels: np.ndarray,
+    **report_kw,
+) -> list:
+    """Effectiveness-vs-rho-vs-deadline surface: one replay per deadline.
+
+    ``queue_factory(deadline_ms)`` must build a FRESH queue (and state) for
+    each replay — reusing one queue would leak calibration and flush logs
+    across deadline points. Each row is :func:`replay_effectiveness`'s dict
+    plus the ``deadline_ms`` that produced it: tightening the deadline
+    shifts traffic down the rho ladder, and the surface shows what that
+    costs on the labels.
+    """
+    rows = []
+    for d in deadlines_ms:
+        queue = queue_factory(float(d))
+        row = replay_effectiveness(
+            queue,
+            arrivals_s,
+            q_terms_list,
+            q_weights_list,
+            [float(d)] * len(arrivals_s),
+            qrels,
+            **report_kw,
+        )
+        row["deadline_ms"] = float(d)
+        rows.append(row)
+    return rows

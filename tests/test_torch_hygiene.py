@@ -5,7 +5,11 @@
 * an entry point called without ``device="cpu"`` on a machine with no GPU
   raises instead of running on the CPU;
 * a kernel wrapper that cannot build or launch its CUDA kernel raises
-  instead of running the plain version.
+  instead of running the plain version;
+* the serving CLI (``python -m repro_torch.launch.serve``) runs end to end
+  with ``--device cpu``, directly and through the admission queue with the
+  counters endpoint, and raises without ``--device cpu`` when there is no
+  GPU.
 """
 import json
 import os
@@ -19,6 +23,7 @@ import torch
 
 from repro_torch.core import ARRAY_FIELDS, META_FIELDS, build_impact_index, index_from_numpy
 from repro_torch.kernels import common
+from repro_torch.kernels.block_prune import ops as dense_prune_ops
 from repro_torch.kernels.block_prune_csr import ops as prune_ops
 from repro_torch.kernels.block_topk import ops as btopk_ops
 from repro_torch.kernels.chunk_step import ops as chunk_ops
@@ -61,7 +66,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "repro_torch.kernels.block_prune_csr.ref", "repro_torch.kernels.block_topk.ops",
         "repro_torch.kernels.block_topk.ref", "repro_torch.kernels.sparse_score.ops",
         "repro_torch.kernels.sparse_score.ref", "repro_torch.kernels.chunk_step.ops",
-        "repro_torch.kernels.chunk_step.ref",
+        "repro_torch.kernels.chunk_step.ref", "repro_torch.kernels.block_prune.ops",
+        "repro_torch.kernels.block_prune.ref", "repro_torch.core.index_handle",
+        "repro_torch.metrics.latency", "repro_torch.serving.bucketing",
+        "repro_torch.serving.counters", "repro_torch.serving.scheduler",
+        "repro_torch.serving.queue", "repro_torch.serving.lifecycle",
+        "repro_torch.launch.serve",
     }
     assert expected <= set(report["modules"])
 
@@ -132,7 +142,10 @@ def _daat_wrapper_calls(device):
     ub, proc = torch.ones((B, nb), **z), torch.zeros((B, nb), dtype=torch.bool, **z)
     ps, pi, th = torch.zeros((B, k), **z), torch.zeros((B, k), **i32), torch.zeros(B, **z)
     chunk_kw = dict(block_budget=2, block_size=bs, n_live=nb * bs)
+    dense = torch.ones((B, lq, nb), **z)
     return {
+        "block_prune": lambda: dense_prune_ops.block_prune_batched(dense, qw, th),
+        "block_prune_single": lambda: dense_prune_ops.block_prune(dense[0], qw[0], th[0]),
         "block_prune_csr": lambda: prune_ops.block_prune_csr_batched(
             torch.zeros(5, **i32), torch.ones(5, **z), torch.zeros((B, lq), **i32),
             torch.ones((B, lq), **i32), qw, th, n_blocks=nb, max_bm_per_term=2),
@@ -152,7 +165,7 @@ def _daat_wrapper_calls(device):
 
 def _daat_counters():
     return (prune_ops.LAUNCHES, btopk_ops.LAUNCHES, score_ops.LAUNCHES, chunk_ops.LAUNCHES,
-            chunk_ops.MULTI_LAUNCHES)
+            chunk_ops.MULTI_LAUNCHES, dense_prune_ops.LAUNCHES)
 
 
 @pytest.mark.parametrize("wrapper", list(_daat_wrapper_calls("cpu")))
@@ -215,3 +228,40 @@ def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
                          env=env, cwd=tmp_path, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+_SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--docs", "600", "--queries", "24",
+          "--batch", "8", "--k", "10"]
+
+
+def _serve(*extra):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run(_SERVE + list(extra), capture_output=True, text=True, env=env,
+                          timeout=300)
+
+
+@pytest.mark.parametrize("mode", ["direct", "queue"])
+def test_serve_cli_runs_on_the_cpu_when_asked(mode):
+    if mode == "direct":
+        out = _serve("--device", "cpu", "--eval-qrels")
+    else:
+        out = _serve("--device", "cpu", "--queue", "--lq-buckets", "4,8,16", "--degrade-rho",
+                     "--counters", "--counters-port", "0")
+    assert out.returncode == 0, out.stderr[-2000:]
+    report = json.loads(out.stdout)
+    assert 0.0 <= report["rr@10"] <= 1.0
+    if mode == "direct":
+        assert report["latency"]["n"] == 24
+        assert report["rho_within_3pct_mrr_loss"] in [r["rho"] for r in report["effectiveness_by_rho"]]
+    else:
+        assert report["completed"] == report["requests"] == 24
+        assert "counters endpoint: http://127.0.0.1:" in out.stderr
+        assert "repro_queue_flush_total" in report["counters"]
+
+
+def test_serve_cli_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    out = _serve()
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr and out.stdout == ""
