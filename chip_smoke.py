@@ -18,7 +18,12 @@ It needs one CUDA card and exits non-zero without one. In order:
 4. kernel phases at the main paths' shapes (one 64-query ``spladev2``
    batch; with and without a tombstone bitmap), held against the plain
    versions as above and timed with CUDA events beside the plain version
-   and a library yardstick where one PyTorch call computes the same;
+   and a library yardstick where one PyTorch call computes the same; the
+   kernel and the yardstick also as 50 calls replayed from one CUDA graph,
+   which leaves out the host's launch cost; ``block_topk`` and
+   ``chunk_step`` also at their edges (ties, all--inf rows, ragged widths,
+   B = 1 and 63, k = 1000, tombstones, rows that leave a multi-trip launch
+   at different trips);
 5. the SAAT path: after one warm-up batch per configuration, serves the
    256 queries in batches of 64 through ``saat_search`` with the fused
    kernel and with the scatter kernel, at k=10 for rho in {100k, 1M,
@@ -48,7 +53,9 @@ It needs one CUDA card and exits non-zero without one. In order:
    fused and 8-trip modes (equal to ``daat_search_batched``); an
    ``IndexHandle`` under ``replay_with_churn`` with one compaction (answers
    equal across it, every merged id live and rescored); and
-   ``saat_search_vmap`` with the kernel scatter.
+   ``saat_search_vmap`` with the kernel scatter;
+9. the single-query wrappers (B = 1) of the scatter, fused top-k, block
+   top-k and scoring kernels, each called once on a query of the batch.
 
 Each path runs with the launch counters set to 0 just before and read just
 after, and fails if one of its kernels was not launched. It prints each
@@ -178,6 +185,19 @@ BTOPK_CASES = (
     ("b3_ragged", dict(batch=3, n=517, k=7, tile=128)),
     ("b8_k_is_n", dict(batch=8, n=100, k=100, tile=128)),
 )
+# block_topk at its edges: the engine's [64, 2159] bounds fully tied, with
+# every k it uses and k = 1; a row of all -inf; widths that are not a
+# multiple of 32; k past n; B = 1.
+BTOPK_EDGE_CASES = (
+    ("tied_b64_n2159_k1", dict(batch=64, n=2159, k=1, tile=8192)),
+    ("tied_b64_n2159_k8", dict(batch=64, n=2159, k=8, tile=8192)),
+    ("tied_b64_n2159_k16", dict(batch=64, n=2159, k=16, tile=8192)),
+    ("neginf_rows_b4_n2159_k16", dict(batch=4, n=2159, k=16, tile=8192, neg_inf_rows=2)),
+    ("ragged_b5_n45_k7", dict(batch=5, n=45, k=7, tile=8192)),
+    ("ragged_b3_n1001_k1000", dict(batch=3, n=1001, k=1000, tile=8192)),
+    ("k_past_n_b2_n45_k60", dict(batch=2, n=45, k=60, tile=8192)),
+    ("b1_n2159_k16", dict(n=2159, k=16, tile=8192)),
+)
 SCORE_CASES = (
     ("small", dict(n=100, tmax=16, lq=8)),
     ("aligned", dict(n=512, tmax=64, lq=32)),
@@ -260,7 +280,19 @@ KERNELS = {
                           "src/repro/kernels/block_prune/kernel.py:42", "dense"),
     "block_prune_b1": Kernel(dense_prune_ops, "LAUNCHES", "src/repro_torch/csrc/block_prune.cu",
                              "src/repro/kernels/block_prune/kernel.py:74", "dense"),
+    # the single-query Pallas entries: B=1 wrappers over the batched kernels
+    # and their counters, each driven once by single_query_phase
+    "impact_scatter_b1": Kernel(scatter_ops, "LAUNCHES", "src/repro_torch/csrc/impact_scatter.cu",
+                                "src/repro/kernels/impact_scatter/kernel.py:134", "single"),
+    "impact_scatter_topk_b1": Kernel(fused_ops, "LAUNCHES",
+                                     "src/repro_torch/csrc/impact_scatter_topk.cu",
+                                     "src/repro/kernels/impact_scatter_topk/kernel.py:157", "single"),
+    "block_topk_b1": Kernel(btopk_ops, "LAUNCHES", "src/repro_torch/csrc/block_topk.cu",
+                            "src/repro/kernels/block_topk/kernel.py:75", "single"),
+    "sparse_score_b1": Kernel(score_ops, "LAUNCHES", "src/repro_torch/csrc/sparse_score.cu",
+                              "src/repro/kernels/sparse_score/kernel.py:91", "single"),
 }
+SINGLE_KERNELS = {n: n[:-3] for n, kern in KERNELS.items() if kern.path == "single"}
 SAAT_KERNELS = tuple(n for n, kern in KERNELS.items() if kern.path == "saat")
 DAAT_KERNELS = tuple(n for n, kern in KERNELS.items() if kern.path == "daat")
 
@@ -287,6 +319,39 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls captured in one CUDA
+    graph and replayed: the card runs them back to back, with none of the
+    host's launch cost between them."""
+    fn()
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def timings(kernel, plain, library=None, plain_iters: int = 10) -> dict:
+    """A row's times: the kernel and its library yardstick with CUDA events
+    around back-to-back calls and replayed from a CUDA graph, and the plain
+    version with CUDA events."""
+    return dict(
+        ms=cuda_ms(kernel), graph_ms=graph_ms(kernel),
+        plain_ms=cuda_ms(plain, iters=plain_iters, warmup=min(2, plain_iters - 1)),
+        library_ms=None if library is None else cuda_ms(library),
+        library_graph_ms=None if library is None else graph_ms(library),
+    )
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -369,10 +434,10 @@ def scatter_phase(docs_raw, contribs_raw, n_docs, block_d, tile_p, single, timed
         n_real = int((docs < n_docs_pad).sum())
         docs_long = docs.long()
         row.update(
-            ms=cuda_ms(lambda: scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, block_d)),
-            plain_ms=cuda_ms(lambda: scatter_ref.impact_scatter_batched_ref(docs, c, n_docs_pad)),
-            library_ms=cuda_ms(lambda: torch.zeros(
-                (B, n_docs_pad + 1), device=docs.device).scatter_add_(1, docs_long, c)),
+            **timings(lambda: scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, block_d),
+                      lambda: scatter_ref.impact_scatter_batched_ref(docs, c, n_docs_pad),
+                      lambda: torch.zeros((B, n_docs_pad + 1), device=docs.device)
+                      .scatter_add_(1, docs_long, c)),
             bound_ms=1e3 * (8 * n_real + 4 * B * n_docs_pad) / HBM_BYTES_PER_S,
             postings=n_real, shape=[B, int(docs.shape[1]), n_docs_pad],
         )
@@ -425,11 +490,10 @@ def topk_phase(docs_raw, contribs_raw, n_docs, k, block_d, tile_p, live, single,
             return torch.topk(acc.view(B, nb, block_d), k_blk)
 
         row.update(
-            ms=cuda_ms(lambda: fused_ops.impact_scatter_topk_launch(
-                docs, c, n_docs_pad, n_docs, k_blk, block_d, live_pad)),
-            plain_ms=cuda_ms(lambda: fused_ref.impact_scatter_topk_block_ref(
-                docs, c, n_docs_pad, n_docs, k_blk, block_d, live_pad)),
-            library_ms=cuda_ms(library),
+            **timings(lambda: fused_ops.impact_scatter_topk_launch(
+                docs, c, n_docs_pad, n_docs, k_blk, block_d, live_pad),
+                lambda: fused_ref.impact_scatter_topk_block_ref(
+                    docs, c, n_docs_pad, n_docs, k_blk, block_d, live_pad), library),
             bound_ms=1e3 * (8 * n_real + (4 * n_docs_pad if live_pad is not None else 0)
                             + 8 * B * nb * k_blk) / HBM_BYTES_PER_S,
             postings=n_real, shape=[B, int(docs.shape[1]), n_docs_pad, k_blk],
@@ -699,11 +763,11 @@ def prune_phase(args, n_blocks, timed, what) -> dict:
         w = (torch.where(valid, bm_weight[idx], 0.0) * qw[..., None]).reshape(B, -1)
         n_entries = int(cnt.sum())
         row.update(
-            ms=cuda_ms(lambda: prune_ops.block_prune_csr_launch(*args, n_blocks)),
-            plain_ms=cuda_ms(lambda: prune_ref.block_prune_csr_batched_ref(
-                *args, n_blocks=n_blocks, max_bm_per_term=m)),
-            library_ms=cuda_ms(lambda: torch.zeros((B, n_blocks), device=w.device)
-                               .scatter_add_(1, blocks, w)),
+            **timings(lambda: prune_ops.block_prune_csr_launch(*args, n_blocks),
+                      lambda: prune_ref.block_prune_csr_batched_ref(
+                          *args, n_blocks=n_blocks, max_bm_per_term=m),
+                      lambda: torch.zeros((B, n_blocks), device=w.device)
+                      .scatter_add_(1, blocks, w)),
             # each window entry read once (block id and maximum), the slot
             # descriptors read once, ub (f32) and the mask (bool) written once
             bound_ms=1e3 * (8 * n_entries + 12 * B * lq + 5 * B * n_blocks) / HBM_BYTES_PER_S,
@@ -712,11 +776,13 @@ def prune_phase(args, n_blocks, timed, what) -> dict:
     return row
 
 
-def tied_scores(shape, seed, device):
-    """Few distinct values, so most scores tie; a tenth of them -inf."""
+def tied_scores(shape, seed, device, neg_inf_rows=0):
+    """Few distinct values, so most scores tie; a tenth of them -inf, and
+    the first ``neg_inf_rows`` rows all -inf."""
     rng = np.random.default_rng(seed)
     s = rng.integers(0, 5, shape).astype(np.float32)
     s[rng.random(shape) < 0.1] = -np.inf
+    s[:neg_inf_rows] = -np.inf
     return torch.as_tensor(s, device=device)
 
 
@@ -743,9 +809,9 @@ def btopk_phase(scores, k, tile, single, timed, what) -> dict:
     if timed:
         n_tiles = s.shape[1] // tile
         row.update(
-            ms=cuda_ms(lambda: btopk_ops.block_topk_launch(s, k_tile, tile)),
-            plain_ms=cuda_ms(lambda: btopk_ref.block_topk_stage1_ref(s, k_tile, tile)),
-            library_ms=cuda_ms(lambda: torch.topk(scores, min(k, n), dim=-1)),
+            **timings(lambda: btopk_ops.block_topk_launch(s, k_tile, tile),
+                      lambda: btopk_ref.block_topk_stage1_ref(s, k_tile, tile),
+                      lambda: torch.topk(scores, min(k, n), dim=-1)),
             bound_ms=1e3 * (4 * b * n + 8 * b * n_tiles * k_tile) / HBM_BYTES_PER_S,
             shape=[b, n, tile, k_tile],
         )
@@ -775,9 +841,17 @@ def matched_slots(terms, qt, qw) -> int:
     return sum(int(torch.isin(t, q[w > 0]).sum()) for t, q, w in zip(terms, qt, qw))
 
 
-def score_phase(args, single, timed, what) -> dict:
+def needed_slots(n_terms: torch.Tensor, tmax: int) -> int:
+    """Term slots a scorer needs of rows holding ``n_terms`` real terms
+    each: up to each row's last real term, rounded up to the 32-slot chunk
+    a warp reads, and at most the row."""
+    return int(torch.clamp((n_terms.long() + 31) // 32 * 32, max=tmax).sum())
+
+
+def score_phase(args, single, timed, what, n_terms=None) -> dict:
     """sparse_score: the kernel and the wrapper against the plain version,
-    scores within RTOL/ATOL (the kernel sums a doc's terms in another order)."""
+    scores within RTOL/ATOL (the kernel sums a doc's terms in another order).
+    ``n_terms`` (timed rows): each row's count of real terms, for the bound."""
     got = score_ops.sparse_score_launch(*args)
     want = score_ref.sparse_score_batched_ref(*(a.cpu() for a in args))
     sync()
@@ -792,14 +866,17 @@ def score_phase(args, single, timed, what) -> dict:
         B, n, tmax = args[0].shape
         lq = args[2].shape[1]
         matched = matched_slots(args[0], args[2], args[3])
+        slots = needed_slots(n_terms, tmax)
+        rest = 4 * matched + 8 * B * lq + 4 * B * n
         row.update(
-            ms=cuda_ms(lambda: score_ops.sparse_score_launch(*args)),
-            plain_ms=cuda_ms(lambda: score_ref.sparse_score_batched_ref(*args), iters=3),
-            library_ms=None,
-            # every term id read once, a weight only where the term matches
-            bound_ms=1e3 * (4 * B * n * tmax + 4 * matched + 8 * B * lq + 4 * B * n)
-            / HBM_BYTES_PER_S,
-            matched_slots=matched, shape=[B, n, tmax, lq],
+            **timings(lambda: score_ops.sparse_score_launch(*args),
+                      lambda: score_ref.sparse_score_batched_ref(*args), plain_iters=3),
+            # every term id read once up to its row's last real term, a
+            # weight only where the term matches; beside it the count of
+            # whole rows, which this kernel reads (it takes any rows)
+            bound_ms=1e3 * (4 * slots + rest) / HBM_BYTES_PER_S,
+            bound_padded_ms=1e3 * (4 * B * n * tmax + rest) / HBM_BYTES_PER_S,
+            term_slots=slots, matched_slots=matched, shape=[B, n, tmax, lq],
         )
     return row
 
@@ -842,8 +919,11 @@ def close_rows(got_s, want_s) -> torch.Tensor:
     return ok.reshape(ok.shape[0], -1).all(dim=-1)
 
 
-def chunk_phase(index, qt, qw_raw, state, budget, live, trips, timed, what) -> dict:
+def chunk_phase(index, qt, qw_raw, state, budget, live, trips, timed, what,
+                vary_trips=False) -> dict:
     """chunk_step (trips None) or chunk_step_multi against its plain version.
+    ``vary_trips``: row b of a multi-trip launch gets 1 + b % trips trips,
+    so rows leave the launch at different trips.
 
     Rows whose processed row, trip count, theta or scores differ must have a
     near-tie (a block bound within RTOL of a theta of the plain trip
@@ -862,7 +942,8 @@ def chunk_phase(index, qt, qw_raw, state, budget, live, trips, timed, what) -> d
     else:
         # as the engine: every row that can still move gets the whole budget
         active = torch.where(processed, float("-inf"), ub).amax(dim=-1) > theta
-        trips_left = torch.where(active, trips, 0).to(torch.int32)
+        budgets = 1 + torch.arange(B, device=ub.device) % trips if vary_trips else trips
+        trips_left = torch.where(active, budgets, 0).to(torch.int32)
         got = chunk_ops.chunk_step_multi_batched(*args, trips_left, trips_per_launch=trips,
                                                  live=live, **kw)
         want = chunk_ref.chunk_step_multi_batched_ref(*hargs, trips_left.cpu(),
@@ -908,6 +989,7 @@ def chunk_phase(index, qt, qw_raw, state, budget, live, trips, timed, what) -> d
                 keep &= live[d] != 0
             needed.append(d[keep])
         n_rows = sum(len(d) for d in needed)
+        slots = sum(needed_slots(index.doc_n_terms[d], tmax) for d in needed)
         matched = matched_slots((index.doc_terms[d] for d in needed), qt, qw_raw)
         if trips is None:
             run_kernel = lambda: chunk_ops.chunk_step_batched(*args, live=live, **kw)  # noqa: E731
@@ -918,16 +1000,44 @@ def chunk_phase(index, qt, qw_raw, state, budget, live, trips, timed, what) -> d
             run_plain = lambda: chunk_ref.chunk_step_multi_batched_ref(  # noqa: E731
                 *args, trips_left, trips_per_launch=trips, live=live, **kw)
         live_bytes = 4 * blocks * bs if live is not None else 0
+        rest = 4 * matched + live_bytes + 6 * B * nb + 16 * B * k
         row.update(
-            ms=cuda_ms(run_kernel),
-            plain_ms=cuda_ms(run_plain, iters=2, warmup=1),
-            library_ms=None,
-            bound_ms=1e3 * (4 * n_rows * tmax + 4 * matched + live_bytes + 6 * B * nb
-                            + 16 * B * k) / HBM_BYTES_PER_S,
-            blocks_scored=blocks, doc_rows=n_rows, matched_slots=matched,
+            **timings(run_kernel, run_plain, plain_iters=2),
+            # term ids up to each scored doc's last real term (rounded up to
+            # the 32-slot chunk), beside the count of whole padded rows
+            bound_ms=1e3 * (4 * slots + rest) / HBM_BYTES_PER_S,
+            bound_padded_ms=1e3 * (4 * n_rows * tmax + rest) / HBM_BYTES_PER_S,
+            blocks_scored=blocks, doc_rows=n_rows, term_slots=slots, matched_slots=matched,
             trips=int(wtd.sum()), shape=[B, nb, k, budget, tmax],
         )
     return row
+
+
+def cluster_sweep(index, qt, qw_raw, states, budget) -> None:
+    """One chunk_step trip replayed from a CUDA graph at each cluster size,
+    for each of ``states`` (k, state), and with theta above every bound (no
+    block live, nothing scored: the trip's fixed cost); every size's result
+    equal to the wrapper's own choice."""
+    kw = dict(block_budget=budget, block_size=index.block_size, n_live=index.n_docs)
+    chosen = chunk_ops.cluster_size
+    try:
+        for k, (ub, processed, pool_s, pool_i, theta) in states:
+            for what, th in (("scoring", theta), ("no live block", torch.full_like(theta, np.inf))):
+                args = (index.doc_terms, index.doc_weights, qt, qw_raw, ub, processed, pool_s,
+                        pool_i, th)
+                want = chunk_ops.chunk_step_batched(*args, **kw)
+                times = {}
+                for size in (1, 2, 4, 8):
+                    chunk_ops.cluster_size = lambda batch, n_sms, size=size: size
+                    got = chunk_ops.chunk_step_batched(*args, **kw)
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                          f"chunk_step at cluster size {size} differs from the wrapper's choice")
+                    times[size] = graph_ms(lambda: chunk_ops.chunk_step_batched(*args, **kw), 20)
+                    chunk_ops.cluster_size = chosen
+                print(f"  chunk_step cluster sweep B={qt.shape[0]} k={k} {what}: ms a trip by "
+                      f"cluster size (CUDA graph) {json.dumps(times)}")
+    finally:
+        chunk_ops.cluster_size = chosen
 
 
 def tiny_index(n_docs, block_size, seed, device):
@@ -945,9 +1055,10 @@ def daat_contract_phases(device, seed) -> dict:
     for i, (name, dims) in enumerate(PRUNE_CASES):
         prune_phase(prune_inputs(dims, seed + 200 + i, device), dims["nb"], False,
                     f"contract {name}")
-    for i, (name, dims) in enumerate(BTOPK_CASES):
+    for i, (name, dims) in enumerate(BTOPK_CASES + BTOPK_EDGE_CASES):
         single = "batch" not in dims
-        scores = tied_scores((dims.get("batch", 1), dims["n"]), seed + 300 + i, device)
+        scores = tied_scores((dims.get("batch", 1), dims["n"]), seed + 300 + i, device,
+                             dims.get("neg_inf_rows", 0))
         btopk_phase(scores, dims["k"], dims["tile"], single, False, f"contract {name}")
     for i, (name, dims) in enumerate(SCORE_CASES):
         row = score_phase(score_inputs(dims, seed + 400 + i, device), "batch" not in dims, False,
@@ -969,8 +1080,9 @@ def daat_contract_phases(device, seed) -> dict:
         row = chunk_phase(index, qt, qw, state, dims["budget"], live, dims.get("trips"), False,
                           f"contract {name}")
         errs[name_k] = max(errs[name_k], row["max_abs_err"])
-    print(f"DAAT contract phases: {len(PRUNE_CASES)} block_prune_csr, {len(BTOPK_CASES)} "
-          f"block_topk, {len(SCORE_CASES)} sparse_score and {len(CHUNK_CASES)} chunk_step shapes "
+    print(f"DAAT contract phases: {len(PRUNE_CASES)} block_prune_csr, "
+          f"{len(BTOPK_CASES) + len(BTOPK_EDGE_CASES)} block_topk (ids and scores equal bit for "
+          f"bit), {len(SCORE_CASES)} sparse_score and {len(CHUNK_CASES)} chunk_step shapes "
           f"agree with their plain versions; max abs err {errs}")
     return errs
 
@@ -1000,9 +1112,11 @@ def daat_main_shape_phases(index, qt, qw, live) -> dict:
             + torch.arange(index.block_size, device=ub.device)).reshape(B, -1)
     gathered = (index.doc_terms[docs], index.doc_weights[docs], qt.int().contiguous(),
                 qw_raw.contiguous())
-    rows["sparse_score"].append(score_phase(gathered, False, True, f"main B={B} N={docs.shape[1]}"))
+    n_terms = index.doc_n_terms[docs]
+    rows["sparse_score"].append(score_phase(gathered, False, True, f"main B={B} N={docs.shape[1]}",
+                                            n_terms))
     rows["sparse_score"].append(score_phase(tuple(g[:1] for g in gathered), True, True,
-                                            f"main B=1 N={docs.shape[1]}"))
+                                            f"main B=1 N={docs.shape[1]}", n_terms[:1]))
     del gathered
     qt32 = qt.int().contiguous()
     for lv in (None, live):
@@ -1013,6 +1127,26 @@ def daat_main_shape_phases(index, qt, qw, live) -> dict:
         if lv is None:
             rows["chunk_step_multi"].append(chunk_phase(index, qt32, qw_raw, state, budget, lv, 8,
                                                         True, f"main B={B} k={k} trips=8"))
+    # the edges, untimed: the cluster size at B = 63 and B = 1; k = 1000 (the
+    # merge with most candidates above theta); tombstones in a multi-trip
+    # launch; rows that leave a launch at different trips
+    state = phase1_state(index, qt, qw, k, est)
+    for b in (B - 1, 1):
+        sub = tuple(t[:b] for t in state)
+        rows["chunk_step"].append(chunk_phase(index, qt32[:b], qw_raw[:b], sub, budget, None,
+                                              None, False, f"edge B={b} k={k}"))
+        rows["chunk_step_multi"].append(chunk_phase(index, qt32[:b], qw_raw[:b], sub, budget,
+                                                    None, 4, False, f"edge B={b} k={k} trips=4",
+                                                    vary_trips=True))
+    rows["chunk_step_multi"].append(chunk_phase(index, qt32, qw_raw, phase1_state(
+        index, qt, qw, k, est, live), budget, live, 4, False, f"edge B={B} k={k} live trips=4"))
+    state1000 = phase1_state(index, qt, qw, 1000, est)
+    rows["chunk_step"].append(chunk_phase(index, qt32, qw_raw, state1000, budget, None, None, False,
+                                          f"edge B={B} k=1000"))
+    rows["chunk_step_multi"].append(chunk_phase(index, qt32, qw_raw, state1000, budget, None, 8,
+                                                False, f"edge B={B} k=1000 trips=8",
+                                                vary_trips=True))
+    cluster_sweep(index, qt32, qw_raw, ((k, state), (1000, state1000)), budget)
     for name, rs in rows.items():
         for r in rs:
             print(f"  {name} {r['what']}: " + json.dumps({k: v for k, v in r.items() if k != "what"}))
@@ -1260,9 +1394,9 @@ def dense_prune_phase(index, qt, qw, device, seed) -> dict:
         b, lq, nb = bm.shape
         rows[name] = [{
             "what": f"main B={b}", "max_abs_err": 0.0,
-            "ms": cuda_ms(lambda: dense_prune_ops.block_prune_launch(bm, w, th)),
-            "plain_ms": cuda_ms(lambda: dense_prune_ref.block_prune_batched_ref(bm, w, th)),
-            "library_ms": cuda_ms(lambda: torch.bmm(w[:, None], bm)),
+            **timings(lambda: dense_prune_ops.block_prune_launch(bm, w, th),
+                      lambda: dense_prune_ref.block_prune_batched_ref(bm, w, th),
+                      lambda: torch.bmm(w[:, None], bm)),
             # each block maximum, weight and theta read once; ub (f32) and
             # the mask (bool) written once
             "bound_ms": 1e3 * (4 * b * lq * nb + 4 * b * lq + 4 * b + 5 * b * nb)
@@ -1637,6 +1771,54 @@ def vmap_phase(index, qt, qw) -> None:
           f"(B=1 wrapper); ids and scores equal to saat_search")
 
 
+def single_query_phase(index, qt, qw) -> dict:
+    """Each single-query wrapper called once on the batch's first query,
+    with its counter set to 0 just before and read just after; each result
+    equal bit for bit to the batched wrapper's first row. Returns the
+    launches."""
+    ms = max_segments_per_term(index)
+    mb = max_blocks_per_term(index)
+    k, est = SERVE_K, DAAT_KW["est_blocks"]
+    docs, contribs, _ = _gather_postings_batched(index, saat_plan(index, qt[:1], qw[:1], ms),
+                                                 1_000_000)
+    ub = block_upper_bounds(index, qt[:1], qw[:1], mb)
+    _, b1 = topk(ub, est)
+    rows = (b1.long()[0, :, None] * index.block_size
+            + torch.arange(index.block_size, device=ub.device)).flatten()
+    dt, dw = index.doc_terms[rows].contiguous(), index.doc_weights[rows].contiguous()
+    q_t, q_w = qt[0].int().contiguous(), torch.where(qw[0] > 0, qw[0].float(), 0.0).contiguous()
+    saat_kw = dict(block_d=512, tile_p=512)
+    calls = {
+        "impact_scatter_b1": (
+            lambda: (scatter_ops.impact_scatter(docs[0], contribs[0], index.n_docs, **saat_kw),),
+            lambda: (scatter_ops.impact_scatter_batched(docs, contribs, index.n_docs,
+                                                        **saat_kw)[0],)),
+        "impact_scatter_topk_b1": (
+            lambda: fused_ops.impact_scatter_topk(docs[0], contribs[0], index.n_docs, k, **saat_kw),
+            lambda: tuple(t[0] for t in fused_ops.impact_scatter_topk_batched(
+                docs, contribs, index.n_docs, k, **saat_kw))),
+        "block_topk_b1": (
+            lambda: btopk_ops.block_topk(ub[0], DAAT_KW["block_budget"]),
+            lambda: tuple(t[0] for t in btopk_ops.block_topk_batched(ub, DAAT_KW["block_budget"]))),
+        "sparse_score_b1": (
+            lambda: (score_ops.sparse_score(dt, dw, q_t, q_w),),
+            lambda: (score_ops.sparse_score_batched(dt[None], dw[None], q_t[None], q_w[None])[0],)),
+    }
+    launches = {}
+    for name, (single, batched) in calls.items():
+        sync()
+        reset_launches()
+        got = single()
+        sync()
+        launches[name] = read_launches()[name]
+        check(launches[name] > 0, f"kernel {name} was not launched by its single-query wrapper")
+        for g, w in zip(got, batched(), strict=True):
+            check(torch.equal(g, w), f"{name}: the single-query wrapper differs from the batched one")
+    print(f"single-query wrappers: each equal bit for bit to the batched wrapper's first row; "
+          f"launches {launches}")
+    return launches
+
+
 class PhaseClock:
     """Seconds of each phase, printed as each ends."""
 
@@ -1677,6 +1859,7 @@ def run(args, device) -> None:
     rows = main_shape_phases(index, qt[:BATCH], qw[:BATCH], live)
     rows.update(daat_main_shape_phases(index, qt[:BATCH], qw[:BATCH], live))
     phase.end("kernels at the main shapes")
+    torch.cuda.reset_peak_memory_stats()  # the peak below is the paths', not the graph timings'
 
     # the SAAT path
     serve(data, n_batches=1)  # warm-up: allocator and sort workspaces at every shape
@@ -1744,6 +1927,10 @@ def run(args, device) -> None:
     phase.end("churn")
     vmap_phase(index, qt[:BATCH], qw[:BATCH])
     phase.end("saat_search_vmap")
+    launches.update(single_query_phase(index, qt[:BATCH], qw[:BATCH]))
+    for name, batched in SINGLE_KERNELS.items():
+        rows[name] = [r for r in rows[batched] if r["what"].startswith("main B=1")]
+    phase.end("single-query wrappers")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     errs = {
@@ -1752,11 +1939,14 @@ def run(args, device) -> None:
     }
     errs.update({n: max([daat_errs[n]] + [r["max_abs_err"] for r in rows[n]]) for n in DAAT_KERNELS})
     errs.update({n: 0.0 for n in ("block_prune", "block_prune_b1")})  # equal bit for bit
+    errs.update({n: max(r["max_abs_err"] for r in rows[n]) for n in SINGLE_KERNELS})
     kernels = [
         {"name": name, "route": "cuda", "source": kern.source, "replaces": kern.replaces,
          "launches": launches[name], "max_abs_err": errs[name], "ms": rows[name][0]["ms"],
          "plain_ms": rows[name][0]["plain_ms"], "bound_ms": rows[name][0]["bound_ms"],
-         "bound_by": "bytes", "library_ms": rows[name][0]["library_ms"]}
+         "bound_by": "bytes", "library_ms": rows[name][0]["library_ms"],
+         "graph_ms": rows[name][0]["graph_ms"],
+         "library_graph_ms": rows[name][0]["library_graph_ms"]}
         for name, kern in KERNELS.items()
     ]
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase.seconds.items()})}")

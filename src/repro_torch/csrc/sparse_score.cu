@@ -14,12 +14,13 @@
 // Design. The TPU kernel matched every term slot against every query slot
 // as a one-hot [BD * Tmax, Lq] matrix and contracted it on the MXU. Here the
 // query's distinct terms go into shared memory once per CTA, sorted, with
-// duplicate slots summed (score_common.cuh); one warp scores one doc, its
-// lanes reading the row's term ids coalesced and finding each in the table
-// by binary search, and reading a weight only where its term matches. Most
-// term slots of a learned-sparse doc match no query term, so the weights
-// are mostly not read. One CTA owns a (query, block of DOCS docs); the
-// fused chunk_step kernel scores with the same device function.
+// duplicate slots summed, beside a hashed filter of them (score_common.cuh);
+// one warp scores one doc, keeping 8 chunks of 32 term ids in flight, testing
+// each term against the filter and looking up only the few it passes, and
+// reading a weight only where its term matches. This kernel takes any rows,
+// so it reads each row to Tmax; the fused chunk_step kernel, which reads the
+// index's own store, stops at the row's padding with the same device function
+// and gives the same bits. One CTA owns a (query, block of DOCS docs).
 #include "score_common.cuh"
 
 namespace {
@@ -36,16 +37,18 @@ sparse_score_kernel(const int* __restrict__ dt, const float* __restrict__ dw,
   __shared__ unsigned char s_flag[repro_torch::MAX_LQ];
   __shared__ int s_terms[repro_torch::MAX_LQ];
   __shared__ float s_vals[repro_torch::MAX_LQ];
+  __shared__ unsigned s_filter[repro_torch::FILTER_WORDS];
   __shared__ int s_n;
   const size_t row = blockIdx.y;
   repro_torch::load_query_table(qt + row * lq, qw + row * lq, lq, s_qt, s_qw, s_flag,
-                                s_terms, s_vals, &s_n);
+                                s_terms, s_vals, &s_n, s_filter);
   const int n_q = s_n;
   const int warp = threadIdx.x >> 5;
   const int d_end = min(n, static_cast<int>(blockIdx.x + 1) * DOCS);
   for (int d = blockIdx.x * DOCS + warp; d < d_end; d += THREADS / 32) {
     const size_t off = (row * n + d) * static_cast<size_t>(tmax);
-    const float s = repro_torch::warp_doc_score(dt + off, dw + off, tmax, s_terms, s_vals, n_q);
+    const float s = repro_torch::warp_doc_score<false>(dt + off, dw + off, tmax, s_filter,
+                                                       s_terms, s_vals, n_q);
     if ((threadIdx.x & 31) == 0) out[row * n + d] = s;
   }
 }

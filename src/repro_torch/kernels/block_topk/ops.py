@@ -25,6 +25,24 @@ from repro_torch.kernels.block_topk.ref import block_topk_stage1_ref
 LAUNCHES = 0
 
 
+def select_threads(tile: int) -> int:
+    """Threads of a ``block_topk`` CTA: one warp per 32 scores of the tile,
+    at most 1,024."""
+    return min(1024, common.round_up(tile, 32))
+
+
+def select_list_len(m: int, n: int, threads: int) -> int:
+    """Length of each warp's list in ``block_select_desc``
+    (``select_common.cuh``): ``min(n, the most keys one warp owns)``."""
+    return min(n, 32 * -(-m // threads))
+
+
+def block_topk_smem(tile: int, k: int) -> int:
+    """Shared memory of a ``block_topk`` CTA: the warps' lists and the tile."""
+    threads = select_threads(tile)
+    return 8 * (threads // 32) * select_list_len(tile, k, threads) + 4 * tile
+
+
 def block_topk_launch(
     scores: torch.Tensor, k: int, tile: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -36,19 +54,20 @@ def block_topk_launch(
     B, n = scores.shape
     if n % tile or not 0 < k <= tile:
         raise ValueError(f"need n % tile == 0 and 0 < k <= tile, got n={n}, tile={tile}, k={k}")
-    n_keys = common.next_pow2(tile)
-    if 8 * n_keys > common.SMEM_LIMIT:
-        raise ValueError(f"tile={tile} needs {8 * n_keys} B of shared memory; the limit is "
+    smem = block_topk_smem(tile, k)
+    if smem > common.SMEM_LIMIT:
+        raise ValueError(f"tile={tile}, k={k} needs {smem} B of shared memory; the limit is "
                          f"{common.SMEM_LIMIT}")
+    threads = select_threads(tile)
     lib = common.kernel_library("block_topk")
     fn = lib.block_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out_s = torch.empty((B, n // tile, k), dtype=torch.float32, device=scores.device)
     out_i = torch.empty((B, n // tile, k), dtype=torch.int32, device=scores.device)
     if B and n:
-        code = fn(common.ptr(scores), common.ptr(out_s), common.ptr(out_i),
-                  B, n, tile, n_keys, k, common.stream_of(scores))
+        code = fn(common.ptr(scores), common.ptr(out_s), common.ptr(out_i), B, n, tile, k,
+                  threads, select_list_len(tile, k, threads), smem, common.stream_of(scores))
         common.raise_on_error("block_topk", code)
         LAUNCHES += 1
     return out_s, out_i

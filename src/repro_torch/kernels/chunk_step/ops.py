@@ -18,7 +18,7 @@ from repro_torch.kernels.chunk_step.ref import (
     chunk_step_batched_ref,
     chunk_step_multi_batched_ref,
 )
-from repro_torch.kernels.sparse_score.ops import check_query_width
+from repro_torch.kernels.sparse_score.ops import MAX_LQ, check_query_width
 
 # Launches of each CUDA kernel since the last reset (``chip_smoke.py`` sets
 # them to 0 before the main path and reads them after).
@@ -54,6 +54,43 @@ def _prepare(doc_terms, doc_weights, q_terms, q_weights, ub, processed, pool_s, 
     return state, live
 
 
+# Threads of a chunk_step CTA (THREADS in chunk_step.cu), the largest
+# portable cluster, and the kernel's static shared memory: the query table
+# (17 B a slot), the term filter and a few scalars (score_common.cuh).
+THREADS = 1024
+MAX_CLUSTER = 8
+STATIC_SMEM = 17 * MAX_LQ + 4 * 2048 + 32
+
+
+def cluster_size(batch: int, n_sms: int) -> int:
+    """CTAs per query: the largest power of two up to ``MAX_CLUSTER`` that
+    keeps ``batch * size`` within the card's SMs (at least 1), so a batch
+    spreads over the card one CTA per SM. (Two CTAs of this kernel fit on
+    an SM, but a cluster twice as wide also doubles the trip's fixed cost;
+    ``chip_smoke.py`` times every size, and ``PERF.md`` records it.)"""
+    size = 1
+    while size < MAX_CLUSTER and 2 * size * batch <= n_sms:
+        size *= 2
+    return size
+
+
+def chunk_step_layout(nb: int, k: int, block_budget: int, block_size: int) -> dict:
+    """The kernel's launch shape for a state of ``nb`` blocks and a pool of
+    ``k``: each warp's select list, the key buffer (the select lists, then
+    the merge's worst case, k plus every candidate, as a power of two) and
+    the dynamic shared memory of the layout at the head of
+    ``chunk_step_kernel``. Raises when it does not fit."""
+    n_cand = block_budget * block_size
+    list_len = min(block_budget, 32 * -(-nb // THREADS))
+    n_keys = max(32 * list_len, common.next_pow2(k + n_cand))
+    smem = (8 * (n_keys + block_budget) + 4 * (nb + n_cand + 2 * k + block_budget)
+            + nb + block_budget)
+    if smem + STATIC_SMEM > common.SMEM_LIMIT:
+        raise ValueError(f"the chunk state needs {smem + STATIC_SMEM} B of shared memory; the "
+                         f"limit is {common.SMEM_LIMIT}")
+    return dict(list_len=list_len, n_keys=n_keys, smem=smem)
+
+
 def _launch(name, state, live, trips_left, trips, block_budget, block_size, n_live):
     """Launch one of the two kernels; returns the new state (and trips_done)."""
     global LAUNCHES, MULTI_LAUNCHES
@@ -65,12 +102,8 @@ def _launch(name, state, live, trips_left, trips, block_budget, block_size, n_li
     B, nb = ub.shape
     k, lq, tmax = ps.shape[1], qt.shape[1], dt.shape[1]
     check_query_width(lq)
-    n_cand = block_budget * block_size
-    n_keys = common.next_pow2(max(nb, k + n_cand))
-    smem = 8 * n_keys + 8 * (k + n_cand) + 8 * k + 4 * block_budget + nb + block_budget
-    if smem > common.SMEM_LIMIT:
-        raise ValueError(f"the chunk state needs {smem} B of shared memory; the limit is "
-                         f"{common.SMEM_LIMIT}")
+    lay = chunk_step_layout(nb, k, block_budget, block_size)
+    cluster = cluster_size(B, torch.cuda.get_device_properties(ub.device).multi_processor_count)
     lib = common.kernel_library("chunk_step")
     out_s, out_i = torch.empty_like(ps), torch.empty_like(pi)
     out_th, out_proc = torch.empty_like(th), torch.empty_like(proc)
@@ -78,16 +111,17 @@ def _launch(name, state, live, trips_left, trips, block_budget, block_size, n_li
     head = [common.ptr(t) for t in (ub, proc, ps, pi, th, qt, qw, dt, dw)] + [live_ptr]
     outs = [common.ptr(t) for t in (out_s, out_i, out_th, out_proc)]
     dims = [B, nb, k, lq, tmax, block_budget, block_size, n_live]
+    tail = [lay["list_len"], lay["n_keys"], cluster, lay["smem"]]
     if trips_left is None:
         fn = lib.chunk_step_launch
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        args = head + outs + dims + [n_keys]
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        args = head + outs + dims + tail
         result = (out_s, out_i, out_th, out_proc)
     else:
         fn = lib.chunk_step_multi_launch
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         trips_done = torch.empty((B,), dtype=torch.int32, device=ub.device)
-        args = head + [common.ptr(trips_left)] + outs + [common.ptr(trips_done)] + dims + [trips, n_keys]
+        args = head + [common.ptr(trips_left)] + outs + [common.ptr(trips_done)] + dims + [trips] + tail
         result = (out_s, out_i, out_th, out_proc, trips_done)
     fn.restype = ctypes.c_int
     if B:
@@ -117,7 +151,10 @@ def chunk_step_batched(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused phase-2 trip over the whole ``[B, ...]`` state.
 
-    ``doc_terms``/``doc_weights``: the doc-major store ``[n_docs_pad, Tmax]``;
+    ``doc_terms``/``doc_weights``: the doc-major store ``[n_docs_pad, Tmax]``
+    (each row its doc's distinct terms, then one pad term to its end, as
+    ``build_impact_index`` lays it out: the kernel stops reading a row at
+    its padding);
     ``q_terms``/``q_weights``: ``[B, Lq]``, weight-``<= 0`` slots zeroed;
     ``ub``: ``f32[B, n_blocks]``; ``processed``: ``bool[B, n_blocks]``;
     ``pool_s``/``pool_i``: the ``[B, k]`` pool; ``theta``: ``f32[B]``;
