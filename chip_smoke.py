@@ -10,7 +10,10 @@ It needs one CUDA card and exits non-zero without one. In order:
    compiler's register report;
 2. kernel phases at the reference's contract shapes: each kernel, and each
    single-query (B=1) wrapper, held against its plain PyTorch version run
-   on a host copy of its inputs;
+   on a host copy of its inputs; both scatter kernels bit for bit at their
+   edges (an empty block, a range over three shared-memory stages, a block
+   of tombstoned docs, pad docs, tied scores, k_blk = 1, 10, 16, 32, 33 and
+   512 across the select-or-sort rule);
 3. generates one shard of a 32-way document-sharded MS MARCO passage
    deployment (276,307 docs, 256 queries) under the ``spladev2`` and
    ``bm25`` treatments, builds each impact index on the host and places it
@@ -23,7 +26,13 @@ It needs one CUDA card and exits non-zero without one. In order:
    which leaves out the host's launch cost; ``block_topk`` and
    ``chunk_step`` also at their edges (ties, all--inf rows, ragged widths,
    B = 1 and 63, k = 1000, tombstones, rows that leave a multi-trip launch
-   at different trips);
+   at different trips); ``sparse_score``'s store-addressed entry at the
+   split trip's shape and phase 1's, and bit for bit at its edges (integer
+   weights: B = 1 and 63, tombstones, the ragged last block, rows with no
+   padding or no terms, duplicate query terms, the live-block gate), with a
+   sweep of its docs per CTA and a check that a split batch scores through
+   it and makes no [B, N, Tmax] gather; ``impact_scatter_topk``'s select
+   and sort timed against each other at k_blk = 1 to 64;
 5. the SAAT path: after one warm-up batch per configuration, serves the
    256 queries in batches of 64 through ``saat_search`` with the fused
    kernel and with the scatter kernel, at k=10 for rho in {100k, 1M,
@@ -170,6 +179,10 @@ TOPK_CASES = (
     ("b8", dict(batch=8, n_postings=1000, n_docs=700, k=13, block_d=256, tile_p=128)),
     ("b3_live", dict(batch=3, n_postings=1000, n_docs=700, k=13, block_d=256, tile_p=128, live=1)),
 )
+# The scatter kernels at their edges (scatter_edge_inputs): 8 blocks of 512,
+# the last ragged; k_blk on both sides of fused_ops.SELECT_MAX_K and at block_d.
+SCATTER_EDGE = dict(batch=3, n_docs=4000, block_d=512, tile_p=512, empty=2, long=5, dead=6)
+SCATTER_EDGE_KS = (1, 10, 16, 32, 33, 512)
 PRUNE_CASES = (
     ("b1", dict(batch=1, lq=8, nb=100, m=16, n_bm=800)),
     ("b4_wide", dict(batch=4, lq=32, nb=2048, m=64, n_bm=12000)),
@@ -206,6 +219,9 @@ SCORE_CASES = (
     ("b3_ragged", dict(batch=3, n=130, tmax=7, lq=3)),
     ("b4_aligned", dict(batch=4, n=512, tmax=64, lq=32)),
 )
+# sparse_score's store-addressed entry at its edges (store_inputs): the split
+# trip's widths (16 blocks of 128 a query, Tmax 650, Lq 35) on a small store.
+STORE_EDGE = dict(n_blocks=24, block_size=128, tmax=650, vocab=3000, batch=64, lq=35, nb=16)
 _CHUNK = dict(n_docs=220, block_size=32, lq=6)
 _CHUNK24 = dict(n_docs=130, block_size=24, lq=4)
 CHUNK_CASES = (
@@ -268,7 +284,10 @@ KERNELS = {
                               "src/repro/kernels/block_prune_csr/kernel.py:84", "daat"),
     "block_topk": Kernel(btopk_ops, "LAUNCHES", "src/repro_torch/csrc/block_topk.cu",
                          "src/repro/kernels/block_topk/kernel.py:41", "daat"),
-    "sparse_score": Kernel(score_ops, "LAUNCHES", "src/repro_torch/csrc/sparse_score.cu",
+    # the DAAT engine scores through the store-addressed entry; the
+    # gathered-rows entry (the Pallas kernel's own contract) is what the
+    # B=1 wrapper launches
+    "sparse_score": Kernel(score_ops, "STORE_LAUNCHES", "src/repro_torch/csrc/sparse_score.cu",
                            "src/repro/kernels/sparse_score/kernel.py:42", "daat"),
     "chunk_step": Kernel(chunk_ops, "LAUNCHES", "src/repro_torch/csrc/chunk_step.cu",
                          "src/repro/kernels/chunk_step/kernel.py:295", "daat"),
@@ -421,6 +440,7 @@ def scatter_phase(docs_raw, contribs_raw, n_docs, block_d, tile_p, single, timed
     want = scatter_ref.impact_scatter_batched_ref(docs.cpu(), c.cpu(), n_docs_pad)
     sync()
     err = max_err(got, want, f"impact_scatter {what}")
+    check(torch.equal(got.cpu(), want), f"impact_scatter {what}: sums differ in their bits")
     if single:
         wrapped = scatter_ops.impact_scatter(docs_raw[0], contribs_raw[0], n_docs,
                                              block_d=block_d, tile_p=tile_p)[None]
@@ -460,6 +480,7 @@ def topk_phase(docs_raw, contribs_raw, n_docs, k, block_d, tile_p, live, single,
     sync()
     ids_equal(gi, wi, f"impact_scatter_topk {what}")
     err = max_err(gs, ws, f"impact_scatter_topk {what}")
+    check(torch.equal(gs.cpu(), ws), f"impact_scatter_topk {what}: scores differ in their bits")
     if single:
         s, i = fused_ops.impact_scatter_topk(docs_raw[0], contribs_raw[0], n_docs, k, live=live,
                                              block_d=block_d, tile_p=tile_p)
@@ -520,6 +541,102 @@ def contract_phases(device, seed) -> tuple[float, float]:
     return errs["impact_scatter"], errs["impact_scatter_topk"]
 
 
+def scatter_edge_inputs(seed, device):
+    """Postings for the scatter kernels' edges (``SCATTER_EDGE``): block
+    ``empty`` gets no postings, block ``long`` a range over more than three
+    shared-memory stages, every doc of block ``dead`` is tombstoned in the
+    bitmap, the last block holds pad docs, and contributions of three
+    integer values tie most scores."""
+    e = SCATTER_EDGE
+    rng = np.random.default_rng(seed)
+    bd, n_docs, B = e["block_d"], e["n_docs"], e["batch"]
+    stage = common.scatter_shape(bd)["stage"]
+    docs = rng.integers(0, n_docs, (B, 6000))
+    docs = np.where(docs // bd == e["empty"], docs - bd, docs)
+    long_run = rng.integers(e["long"] * bd, (e["long"] + 1) * bd, (B, 3 * stage + 100))
+    docs = np.concatenate([docs, long_run], axis=1)
+    contribs = rng.integers(1, 4, docs.shape).astype(np.float32)
+    live = rng.random(n_docs) < 0.9
+    live[e["dead"] * bd:(e["dead"] + 1) * bd] = False
+    blocks = docs // bd
+    check(not (blocks == e["empty"]).any() and bool(((blocks == e["long"]).sum(axis=1) > 3 * stage).all()),
+          "scatter edge inputs: a block is not empty or a range does not span three stages")
+    return (torch.as_tensor(docs, dtype=torch.int32, device=device),
+            torch.as_tensor(contribs, device=device),
+            torch.as_tensor(live, dtype=torch.int32, device=device))
+
+
+def scatter_edge_phases(device, seed) -> None:
+    """Both scatter kernels bit for bit against their plain versions at the
+    edges, the fused kernel at each k_blk of ``SCATTER_EDGE_KS`` (both sides
+    of the select-or-sort rule), with and without the bitmap."""
+    e = SCATTER_EDGE
+    docs, contribs, live = scatter_edge_inputs(seed, device)
+    scatter_phase(docs, contribs, e["n_docs"], e["block_d"], e["tile_p"], single=False,
+                  timed=False, what="edge")
+    for k in SCATTER_EDGE_KS:
+        for lv in (None, live):
+            topk_phase(docs, contribs, e["n_docs"], k, e["block_d"], e["tile_p"], lv, single=False,
+                       timed=False, what=f"edge k={k}{' live' if lv is not None else ''}")
+    routes = {k: "select" if fused_ops.use_select(min(k, e["block_d"])) else "sort"
+              for k in SCATTER_EDGE_KS}
+    print(f"scatter edge phases: impact_scatter and impact_scatter_topk equal their plain versions "
+          f"bit for bit (an empty block, a range over 3 or more stages, a dead block, pad "
+          f"docs, tied scores) at k_blk {routes}")
+
+
+def select_sweep(docs, c, n_docs_pad, n_live, block_d) -> None:
+    """The fused kernel's block top-k by the select and by the sort at each
+    k_blk, replayed from a CUDA graph; both equal."""
+    rule = fused_ops.use_select
+    try:
+        for k in (1, 10, 16, 32, 64):
+            times, outs = {}, {}
+            for route in ("select", "sort"):
+                fused_ops.use_select = lambda k_blk, route=route: route == "select"
+                outs[route] = fused_ops.impact_scatter_topk_launch(docs, c, n_docs_pad, n_live, k,
+                                                                   block_d)
+                times[route] = graph_ms(lambda: fused_ops.impact_scatter_topk_launch(
+                    docs, c, n_docs_pad, n_live, k, block_d), 20)
+            check(all(torch.equal(a, b) for a, b in zip(outs["select"], outs["sort"])),
+                  f"impact_scatter_topk k={k}: the select and the sort differ")
+            print(f"  impact_scatter_topk select sweep k_blk={k}: ms (CUDA graph) {json.dumps(times)}"
+                  f"; the rule takes the {'select' if rule(k) else 'sort'}")
+    finally:
+        fused_ops.use_select = rule
+
+
+def scatter_shape_sweep(docs, c, n_docs_pad, n_live, block_d) -> None:
+    """Both scatter kernels (the fused one at k = 10) at each CTA shape:
+    docs a thread and postings staged a doc, replayed from a CUDA graph;
+    every shape's output equal to the wrapper's own choice's."""
+    chosen = common.scatter_shape
+    want = (scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, block_d),
+            *fused_ops.impact_scatter_topk_launch(docs, c, n_docs_pad, n_live, 10, block_d))
+    times = {}
+    try:
+        for dpt in (1, 2, 4):
+            for per_doc in (1, 2, 4):
+                stage = per_doc * block_d
+                common.scatter_shape = lambda bd, dpt=dpt, stage=stage: dict(
+                    dpt=dpt, threads=bd // dpt, stage=stage, smem=8 * stage + 4 * bd)
+                got = (scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, block_d),
+                       *fused_ops.impact_scatter_topk_launch(docs, c, n_docs_pad, n_live, 10,
+                                                             block_d))
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"scatter kernels at {dpt} docs a thread, stage {stage}: output differs")
+                times[f"dpt{dpt} stage{stage}"] = [
+                    graph_ms(lambda: scatter_ops.impact_scatter_launch(docs, c, n_docs_pad,
+                                                                       block_d), 20),
+                    graph_ms(lambda: fused_ops.impact_scatter_topk_launch(
+                        docs, c, n_docs_pad, n_live, 10, block_d), 20)]
+    finally:
+        common.scatter_shape = chosen
+    print(f"  scatter shape sweep B={docs.shape[0]} block_d={block_d}: ms (CUDA graph) "
+          f"[impact_scatter, impact_scatter_topk k=10] by shape {json.dumps(times)}; the "
+          f"wrappers take {json.dumps(chosen(block_d))}")
+
+
 def main_shape_phases(index, qt, qw, live) -> dict:
     """Both kernels at the main path's shapes: one batch at rho = 1M."""
     ms = max_segments_per_term(index)
@@ -541,6 +658,14 @@ def main_shape_phases(index, qt, qw, live) -> dict:
     rows["impact_scatter_topk"].append(topk_phase(
         docs[:1], contribs[:1], index.n_docs, 10, 512, 512, None, single=True, timed=True,
         what="main B=1 rho=1M k=10"))
+    for k in (1, 16):
+        rows["impact_scatter_topk"].append(topk_phase(
+            docs, contribs, index.n_docs, k, 512, 512, None, single=False, timed=False,
+            what=f"edge B={B} rho=1M k={k}"))
+    pad = common.round_up(index.n_docs, 512)
+    sd, sc = common.sorted_posting_tiles(docs, contribs, pad, 512)
+    select_sweep(sd, sc, pad, index.n_docs, 512)
+    scatter_shape_sweep(sd, sc, pad, index.n_docs, 512)
     for name, rs in rows.items():
         for r in rs:
             print(f"  {name} {r['what']}: " + json.dumps({k: v for k, v in r.items() if k != "what"}))
@@ -881,6 +1006,194 @@ def score_phase(args, single, timed, what, n_terms=None) -> dict:
     return row
 
 
+def store_inputs(seed, device):
+    """A doc store as ``build_impact_index`` lays it out (``STORE_EDGE``):
+    each row its distinct ascending terms, then the pad term V to its end;
+    doc 0 fills all Tmax slots, doc 1 none, doc 2 exactly 7 chunks of 32.
+    Integer weights, so every sum is exact in any order. Every query repeats
+    its first term in slot 1 and carries a zero-weight slot and a pad slot
+    (term V, weight 0). Each query selects 16 distinct blocks, always block
+    0 and the last block, whose last 45 docs are pad docs (past n_live)."""
+    e = STORE_EDGE
+    rng = np.random.default_rng(seed)
+    n_blocks, bs, tmax, vocab = e["n_blocks"], e["block_size"], e["tmax"], e["vocab"]
+    B, lq, nb = e["batch"], e["lq"], e["nb"]
+    dt = np.full((n_blocks * bs, tmax), vocab, np.int32)
+    dw = np.zeros((n_blocks * bs, tmax), np.float32)
+    lens = rng.integers(0, 400, n_blocks * bs)
+    lens[:3] = (tmax, 0, 7 * 32)
+    for d, n in enumerate(lens):
+        dt[d, :n] = np.sort(rng.choice(vocab, n, replace=False))
+        dw[d, :n] = rng.integers(1, 8, n)
+    qt = rng.integers(0, vocab, (B, lq)).astype(np.int32)
+    qw = rng.integers(1, 5, (B, lq)).astype(np.float32)
+    qt[:, 1] = qt[:, 0]
+    qw[:, 2] = 0.0
+    qt[:, -1], qw[:, -1] = vocab, 0.0
+    ids = np.stack([np.concatenate([[0, n_blocks - 1],
+                                    1 + rng.choice(n_blocks - 2, nb - 2, replace=False)])
+                    for _ in range(B)])
+    ids = rng.permuted(ids, axis=1).astype(np.int32)
+    return dict(
+        store=(torch.as_tensor(dt, device=device), torch.as_tensor(dw, device=device)),
+        block_ids=torch.as_tensor(ids, device=device), qt=torch.as_tensor(qt, device=device),
+        qw=torch.as_tensor(qw, device=device), block_size=bs, n_live=n_blocks * bs - 45,
+        live=torch.as_tensor(rng.random(n_blocks * bs) < 0.8, dtype=torch.int32, device=device),
+        block_live=torch.as_tensor(rng.random((B, nb)) < 0.7, device=device),
+    )
+
+
+def store_phase(store, block_ids, qt, qw, *, block_size, n_live, live=None, block_live=None,
+                exact, timed, what, n_terms=None) -> dict:
+    """sparse_score's store-addressed entry against its plain version
+    (gather, the gathered plain version, the masks) on the same inputs: bit
+    for bit when ``exact`` (integer weights: every sum is exact in any
+    order), else within RTOL/ATOL; every doc it scores equal bit for bit to
+    the gathered-rows entry on the gathered rows (the same scorer, stopping
+    at the padding), every other doc -inf; the wrapper equal to the launch.
+    ``n_terms`` (timed rows): each store row's count of real terms."""
+    dt, dw = store
+    kw = dict(block_size=block_size, n_live=n_live, live=live, block_live=block_live)
+    got = score_ops.sparse_score_blocks_launch(dt, dw, block_ids, qt, qw, **kw)
+    want = score_ref.sparse_score_blocks_ref(dt, dw, block_ids, qt, qw, **kw)
+    B, nb = block_ids.shape
+    flat = (block_ids.long()[..., None] * block_size
+            + torch.arange(block_size, device=dt.device)).reshape(B, -1)
+    keep = flat < n_live
+    if live is not None:
+        keep &= live[flat] != 0
+    if block_live is not None:
+        keep &= block_live.repeat_interleave(block_size, dim=1)
+    gathered = score_ops.sparse_score_launch(dt[flat], dw[flat], qt, qw)
+    wrapped = score_ops.sparse_score_blocks_batched(dt, dw, block_ids, qt, qw, **kw)
+    sync()
+    err = max_err(got, want, f"sparse_score store {what}")
+    if exact:
+        check(torch.equal(got, want), f"sparse_score store {what}: scores differ in their bits")
+    check(torch.equal(got[keep], gathered[keep]) and bool(torch.isneginf(got[~keep]).all()),
+          f"sparse_score store {what}: differs from the gathered-rows entry")
+    check(torch.equal(wrapped, got), f"sparse_score store {what}: the wrapper differs")
+    row = {"what": f"store {what}", "max_abs_err": err}
+    if timed:
+        tmax, lq = dt.shape[1], qt.shape[1]
+        docs = [f[k] for f, k in zip(flat, keep)]
+        slots = sum(needed_slots(n_terms[d], tmax) for d in docs)
+        matched = matched_slots((dt[d] for d in docs), qt, qw)
+        n_kept = int(keep.sum())
+        checked = (flat < n_live) if block_live is None else (
+            (flat < n_live) & block_live.repeat_interleave(block_size, dim=1))
+        live_bytes = 4 * int(checked.sum()) if live is not None else 0
+        gate_bytes = B * nb if block_live is not None else 0
+        rest = 4 * matched + 4 * B * nb * block_size + live_bytes + gate_bytes + 4 * B * nb + 8 * B * lq
+        row.update(
+            **timings(lambda: score_ops.sparse_score_blocks_launch(dt, dw, block_ids, qt, qw, **kw),
+                      lambda: score_ref.sparse_score_blocks_ref(dt, dw, block_ids, qt, qw, **kw),
+                      plain_iters=3),
+            # each scored doc's term ids up to its last real term (rounded
+            # up to the 32-slot chunk), a weight only where the term matches,
+            # each score written; beside it the count of whole rows
+            bound_ms=1e3 * (4 * slots + rest) / HBM_BYTES_PER_S,
+            bound_padded_ms=1e3 * (4 * n_kept * tmax + rest) / HBM_BYTES_PER_S,
+            docs_scored=n_kept, term_slots=slots, matched_slots=matched,
+            shape=[B, nb * block_size, tmax, lq],
+        )
+    return row
+
+
+def span_sweep(store, block_ids, qt, qw, kw) -> None:
+    """The store-addressed entry at each span of docs a CTA, replayed from a
+    CUDA graph; every span's scores equal the wrapper's own choice's."""
+    chosen = score_ops.docs_per_cta
+    want = score_ops.sparse_score_blocks_launch(*store, block_ids, qt, qw, **kw)
+    B, nb = block_ids.shape
+    n = nb * kw["block_size"]
+    pick = chosen(B, n, torch.cuda.get_device_properties(qt.device).multi_processor_count)
+    times = {}
+    try:
+        for span in (8, 16, 32, 64, 128, 256, 512):
+            score_ops.docs_per_cta = lambda batch, n_docs, n_sms, span=span: span
+            got = score_ops.sparse_score_blocks_launch(*store, block_ids, qt, qw, **kw)
+            check(torch.equal(got, want), f"sparse_score store at {span} docs a CTA differs")
+            times[span] = graph_ms(
+                lambda: score_ops.sparse_score_blocks_launch(*store, block_ids, qt, qw, **kw), 20)
+    finally:
+        score_ops.docs_per_cta = chosen
+    print(f"  sparse_score store span sweep B={B} N={n}: ms (CUDA graph) by docs a CTA "
+          f"{json.dumps(times)}; the wrapper takes {pick}")
+
+
+def split_gather_check(index, qt, qw) -> None:
+    """One split-mode batch (k = 10, exact): it launches the store-addressed
+    scorer and not the gathered-rows one, and its peak device memory above
+    what was allocated before stays under one [B, N, Tmax] copy of the term
+    ids, the gather it no longer makes."""
+    kw = dict(k=10, exact=True, max_bm_per_term=max_blocks_per_term(index), use_kernels=True,
+              **DAAT_KW)
+    daat_search_batched(index, qt, qw, **kw)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = (score_ops.LAUNCHES, score_ops.STORE_LAUNCHES)
+    daat_search_batched(index, qt, qw, **kw)
+    sync()
+    extra = torch.cuda.max_memory_allocated() - base
+    copy = 4 * qt.shape[0] * DAAT_KW["block_budget"] * index.block_size * index.doc_terms.shape[1]
+    check(score_ops.LAUNCHES == before[0] and score_ops.STORE_LAUNCHES > before[1],
+          "split mode did not score through the store-addressed entry alone")
+    check(extra < copy, f"split mode allocated {extra} B above its inputs, not under one "
+                        f"[B, N, Tmax] copy ({copy} B)")
+    print(f"  split DAAT batch: {score_ops.STORE_LAUNCHES - before[1]} store-addressed "
+          f"sparse_score launches, 0 gathered; peak {extra / 1e6:.1f} MB above its inputs "
+          f"(one [B, N, Tmax] copy of the term ids: {copy / 1e6:.1f} MB)")
+
+
+def store_main_phases(index, qt, qw_raw, state, live) -> list:
+    """The store-addressed entry at the split trip's shape (the engine's
+    first trip after phase 1: 16 blocks a query, gated by ub > theta) and at
+    phase 1's (8 blocks, no gate), timed; then, bit for bit, the trip with
+    the index's weights made integers at B = 64, 63 and 1 and under the
+    tombstone bitmap, and a synthetic store at its edges (``store_inputs``)."""
+    ub, processed, _, _, theta = state
+    budget, est, bs = DAAT_KW["block_budget"], DAAT_KW["est_blocks"], index.block_size
+    store = (index.doc_terms, index.doc_weights)
+    ub_c, b_c = topk(torch.where(processed, float("-inf"), ub), budget)
+    b_c = b_c.int().contiguous()
+    gate = (ub_c > theta[:, None]).contiguous()
+    b_1 = topk(ub, est)[1].int().contiguous()
+    B = qt.shape[0]
+    main = dict(block_size=bs, n_live=index.n_docs, n_terms=index.doc_n_terms)
+    rows = [
+        store_phase(store, b_c, qt, qw_raw, block_live=gate, exact=False, timed=True,
+                    what=f"B={B} N={budget * bs} trip", **main),
+        store_phase(store, b_1, qt, qw_raw, exact=False, timed=True,
+                    what=f"B={B} N={est * bs} phase 1", **main),
+        store_phase(store, b_c, qt, qw_raw, live=live, block_live=gate, exact=False, timed=False,
+                    what=f"B={B} N={budget * bs} trip live", **main),
+    ]
+    span_sweep(store, b_c, qt, qw_raw, dict(block_size=bs, n_live=index.n_docs, block_live=gate))
+    int_store = (index.doc_terms, torch.clamp(torch.round(index.doc_weights * 8), 0, 255))
+    int_qw = torch.clamp(torch.round(qw_raw * 8), 0, 63)
+    for b in (B, B - 1, 1):
+        rows.append(store_phase(int_store, b_c[:b], qt[:b], int_qw[:b], block_size=bs,
+                                n_live=index.n_docs, block_live=gate[:b], exact=True, timed=False,
+                                what=f"edge B={b} N={budget * bs} trip integer weights"))
+    rows.append(store_phase(int_store, b_c, qt, int_qw, block_size=bs, n_live=index.n_docs,
+                            live=live, block_live=gate, exact=True, timed=False,
+                            what=f"edge B={B} N={budget * bs} trip integer weights live"))
+    del int_store
+    e = store_inputs(0, qt.device)
+    cases = {"B=64": (64, False, False), "B=63": (63, False, False), "B=1": (1, False, False),
+             "live": (64, True, False), "gate": (64, False, True), "live gate": (64, True, True)}
+    for name, (b, lv, gt) in cases.items():
+        rows.append(store_phase(e["store"], e["block_ids"][:b], e["qt"][:b], e["qw"][:b],
+                                block_size=e["block_size"], n_live=e["n_live"],
+                                live=e["live"] if lv else None,
+                                block_live=e["block_live"][:b] if gt else None, exact=True,
+                                timed=False, what=f"edge synthetic {name}"))
+    split_gather_check(index, qt, qw_raw)
+    return rows
+
+
 def phase1_state(index, qt, qw, k, est_blocks, live=None):
     """The DAAT engine's phase-1 state (plain pieces): ub, processed, the
     pool and theta after the ``est_blocks`` highest-bound blocks are scored."""
@@ -1107,6 +1420,9 @@ def daat_main_shape_phases(index, qt, qw, live) -> dict:
         rows["block_topk"].append(btopk_phase(ub, n, 8192, False, True, f"main B={B} k={n}"))
     rows["block_topk"].append(btopk_phase(ub[:1], budget, 8192, True, True,
                                           f"main B=1 k={budget}"))
+    qt32 = qt.int().contiguous()
+    rows["sparse_score"] += store_main_phases(index, qt32, qw_raw, phase1_state(index, qt, qw, k, est),
+                                              live)
     _, b1 = topk(ub, est)
     docs = (b1.long()[..., None] * index.block_size
             + torch.arange(index.block_size, device=ub.device)).reshape(B, -1)
@@ -1118,7 +1434,6 @@ def daat_main_shape_phases(index, qt, qw, live) -> dict:
     rows["sparse_score"].append(score_phase(tuple(g[:1] for g in gathered), True, True,
                                             f"main B=1 N={docs.shape[1]}", n_terms[:1]))
     del gathered
-    qt32 = qt.int().contiguous()
     for lv in (None, live):
         state = phase1_state(index, qt, qw, k, est, lv)
         tag = " live" if lv is not None else ""
@@ -1848,6 +2163,7 @@ def run(args, device) -> None:
     phase.end("kernel build")
 
     err_s, err_t = contract_phases(device, args.seed)
+    scatter_edge_phases(device, args.seed)
     daat_errs = daat_contract_phases(device, args.seed)
     phase.end("kernel contracts")
     corpus, data = make_data(args.n_docs, args.n_queries, args.seed, device)
@@ -1894,6 +2210,8 @@ def run(args, device) -> None:
     print(f"DAAT main path launches: {d_launches}")
     for name in DAAT_KERNELS:
         check(d_launches[name] > 0, f"kernel {name} was not launched on the DAAT main path")
+    check(d_launches["sparse_score_b1"] == 0,
+          "the DAAT main path launched the gathered-rows scorer: split mode gathered rows")
     launches.update({name: d_launches[name] for name in DAAT_KERNELS})
 
     verify_daat(data, d_results)

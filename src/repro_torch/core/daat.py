@@ -221,22 +221,21 @@ def _score_blocks_kernel_batched(
     q_weights: torch.Tensor,
     block_ids: torch.Tensor,
     live_mask: torch.Tensor | None = None,
+    block_live: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`score_blocks` through one ``sparse_score`` launch: the selected
-    blocks' rows are gathered (plain indexing, as the reference gathers them
-    outside Pallas) and scored against the raw query; pad and tombstoned
-    docs mask to ``-inf`` after the kernel."""
+    """:func:`score_blocks` through one ``sparse_score`` launch that reads
+    the selected blocks' rows where they lie in the doc-major store (the
+    reference gathers them outside Pallas; the function is the same and no
+    ``[B, N, Tmax]`` copy is made). Pad and tombstoned docs, and the docs of
+    blocks whose optional ``block_live [B, nb]`` entry is False, score
+    ``-inf``."""
     bs = index.block_size
     docs = block_ids.long()[..., None] * bs + torch.arange(bs, device=block_ids.device)
-    B = docs.shape[0]
-    flat = docs.reshape(B, -1)
     # the engine defines qw <= 0 slots as padding; the kernel sums raw weights
     qw = torch.where(q_weights > 0, q_weights.float(), 0.0)
-    scores = score_ops.sparse_score_batched(index.doc_terms[flat], index.doc_weights[flat],
-                                            q_terms, qw)
-    scores = torch.where(flat < index.n_docs, scores, NEG_INF)
-    if live_mask is not None:
-        scores = torch.where(live_mask[flat] != 0, scores, NEG_INF)
+    scores = score_ops.sparse_score_blocks_batched(
+        index.doc_terms, index.doc_weights, block_ids, q_terms, qw,
+        block_size=bs, n_live=index.n_docs, live=live_mask, block_live=block_live)
     return scores.reshape(docs.shape), docs
 
 
@@ -398,8 +397,9 @@ def daat_search_batched(
         def _select(scores, n):
             return topk_ops.block_topk_batched(scores, n)
 
-        def _score(block_ids):
-            return _score_blocks_kernel_batched(index, q_terms, q_weights, block_ids, live_mask)
+        def _score(block_ids, block_live=None):
+            return _score_blocks_kernel_batched(index, q_terms, q_weights, block_ids, live_mask,
+                                                block_live)
 
     else:
         ub, qvec = daat_plan(index, q_terms, q_weights, max_bm_per_term)
@@ -407,7 +407,7 @@ def daat_search_batched(
         def _select(scores, n):
             return topk(scores, n)
 
-        def _score(block_ids):
+        def _score(block_ids, block_live=None):  # the caller masks the blocks that are not live
             return score_blocks(index, qvec, block_ids, live_mask)
 
     if live_mask is not None:
@@ -444,7 +444,7 @@ def daat_search_batched(
             )
         ub_c, b_c = _select(remaining_ub(processed), block_budget)
         live = ub_c > theta[:, None]  # only these can change the top-k
-        s_c, d_c = _score(b_c)
+        s_c, d_c = _score(b_c, live)  # the kernel scorer does not read the other blocks
         s_c = torch.where(live[..., None], s_c, NEG_INF)
         new_s, new_i = merge_topk(pool_s, pool_i, s_c.reshape(B, -1),
                                   d_c.reshape(B, -1).to(torch.int32), k)

@@ -17,10 +17,10 @@
 // n = 8 or 16 (block_topk at 0.054 ms; chip_smoke.py on an NVIDIA H100
 // 80GB HBM3, 700.00 W). block_select_desc needs two barriers: each warp
 // keeps the n best keys of its strided slice by n rounds of a warp-wide
-// 64-bit max (5 shuffles; only the lane that gave up its key rescans its
-// few keys, for the best one below the key just taken, so nothing is
-// marked or written back), then one warp merges the warps' sorted lists by
-// n more rounds of the same max over the lists' heads.
+// 64-bit max (two warp reductions; only the lane that gave up its key
+// rescans its few keys, for the best one below the key just taken, so
+// nothing is marked or written back), then one warp merges the warps'
+// sorted lists by n more rounds of the same max over the lists' heads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,12 +50,15 @@ __device__ __forceinline__ int key_index(unsigned long long key) {
   return static_cast<int>(0xFFFFFFFFu - static_cast<uint32_t>(key));
 }
 
+// The largest key of the warp, given to every lane: the largest high word
+// (the score's bits), then the largest low word among the lanes that hold
+// it (the lowest index). Two warp-wide reductions (sm_80 and later), in
+// place of five dependent rounds of 64-bit shuffles.
 __device__ __forceinline__ unsigned long long warp_max_key(unsigned long long key) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, off);
-    key = other > key ? other : key;
-  }
-  return key;
+  const unsigned hi = static_cast<unsigned>(key >> 32);
+  const unsigned top = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned lo = __reduce_max_sync(0xffffffffu, hi == top ? static_cast<unsigned>(key) : 0u);
+  return (static_cast<unsigned long long>(top) << 32) | lo;
 }
 
 // The best key below `below` among this thread's keys key_at(i), i = tid,

@@ -80,8 +80,28 @@ def next_pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
+# The scatter kernels' CTA shape (csrc/scatter_common.cuh): each thread sums
+# SCATTER_DOCS_PER_THREAD docs (fewer where the block would get under two
+# warps), and a CTA stages STAGE_PER_DOC postings a doc of its block at once.
+SCATTER_DOCS_PER_THREAD = 4
+STAGE_PER_DOC = 2
+
+
+def scatter_shape(block_d: int) -> dict:
+    """The scatter kernels' launch shape for blocks of ``block_d`` docs:
+    docs a thread (``dpt``: 1, 2 or 4), threads a CTA, postings a stage and
+    the shared memory of the accumulation (``block_doc_sums``): 8 B a
+    staged posting and a run start per doc, 4 B x ``block_d``."""
+    dpt = SCATTER_DOCS_PER_THREAD
+    while dpt > 1 and block_d // dpt < 64:
+        dpt //= 2
+    stage = STAGE_PER_DOC * block_d
+    return dict(dpt=dpt, threads=block_d // dpt, stage=stage, smem=8 * stage + 4 * block_d)
+
+
 def check_block_d(block_d: int) -> None:
-    """One CUDA thread per doc of a block, and a bitonic sort over the block."""
+    """A block is a power of two of docs in [64, 1024]: a scatter CTA holds
+    one to four docs a thread and sorts the block's keys by a bitonic sort."""
     if block_d < 64 or block_d > 1024 or block_d & (block_d - 1):
         raise ValueError(f"block_d must be a power of two in [64, 1024], got {block_d}")
 

@@ -36,15 +36,17 @@ def impact_scatter_launch(
         raise ValueError(f"expected matching [B, P] inputs, got {docs.shape}, {contribs.shape}")
     if n_docs % block_d:
         raise ValueError(f"n_docs {n_docs} is not a multiple of block_d {block_d}")
+    shape = common.scatter_shape(block_d)
     lib = common.kernel_library("impact_scatter")
     fn = lib.impact_scatter_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     B, P = docs.shape
     out = torch.empty((B, n_docs), dtype=torch.float32, device=docs.device)
     if B and n_docs:
         code = fn(common.ptr(docs), common.ptr(contribs), common.ptr(out),
-                  B, P, n_docs, block_d, common.stream_of(docs))
+                  B, P, n_docs, block_d, shape["dpt"], shape["stage"], shape["smem"],
+                  common.stream_of(docs))
         common.raise_on_error("impact_scatter", code)
         LAUNCHES += 1
     return out

@@ -25,6 +25,33 @@ from repro_torch.kernels.impact_scatter_topk.ref import impact_scatter_topk_bloc
 # it to 0 before the main path and reads it after).
 LAUNCHES = 0
 
+# The largest k_blk whose block top-k the kernel keeps by the select; past
+# it, k rounds of a warp-wide max cost more than one bitonic sort of the
+# block's keys.
+SELECT_MAX_K = 32
+
+
+def use_select(k_blk: int) -> bool:
+    """Whether the kernel keeps a block's ``k_blk`` best by
+    ``block_select_desc`` (``select_common.cuh``: k rounds of a warp-wide
+    max, then a merge of the warps' lists) rather than a bitonic sort of all
+    its keys. Keys are unique, so both give the same ids."""
+    return k_blk <= SELECT_MAX_K
+
+
+def impact_scatter_topk_layout(block_d: int, k_blk: int) -> dict:
+    """The kernel's launch shape: the accumulation's (``common.scatter_shape``),
+    the select or the sort, its keys (the warps' select lists of
+    ``min(k_blk, 32 x dpt)`` keys each, or one key per doc for the sort) and
+    its dynamic shared memory: the keys, the block's scores and the
+    accumulation's."""
+    shape = common.scatter_shape(block_d)
+    select = use_select(k_blk)
+    list_len = min(k_blk, 32 * shape["dpt"])
+    n_keys = (shape["threads"] // 32) * list_len if select else block_d
+    return dict(shape, select=select, list_len=list_len, n_keys=n_keys,
+                smem=8 * n_keys + 4 * block_d + shape["smem"])
+
 
 def impact_scatter_topk_launch(
     docs: torch.Tensor,
@@ -55,9 +82,10 @@ def impact_scatter_topk_launch(
         raise ValueError(f"k must lie in (0, block_d={block_d}], got {k}")
     if live is not None and (live.dtype != torch.int32 or live.shape != (n_docs,)):
         raise ValueError(f"live must be i32[{n_docs}], got {live.dtype}{list(live.shape)}")
+    lay = impact_scatter_topk_layout(block_d, k)
     lib = common.kernel_library("impact_scatter_topk")
     fn = lib.impact_scatter_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     B, P = docs.shape
     nb = n_docs // block_d
@@ -67,7 +95,8 @@ def impact_scatter_topk_launch(
         live_ptr = ctypes.c_void_p(None) if live is None else common.ptr(live)
         code = fn(common.ptr(docs), common.ptr(contribs), live_ptr,
                   common.ptr(out_s), common.ptr(out_i),
-                  B, P, n_docs, n_live, block_d, k, common.stream_of(docs))
+                  B, P, n_docs, n_live, block_d, k, lay["dpt"], lay["stage"], int(lay["select"]),
+                  lay["n_keys"], lay["list_len"], lay["smem"], common.stream_of(docs))
         common.raise_on_error("impact_scatter_topk", code)
         LAUNCHES += 1
     return out_s, out_i

@@ -8,7 +8,12 @@ on the same numpy inputs.
 * ``block_topk`` against the reference's ops in interpret mode, on inputs
   full of ties and ``-inf``: ids and scores equal.
 * ``sparse_score`` against the reference's ops in interpret mode, duplicate
-  and zero-weight query terms included: within rtol 1e-5 / atol 1e-5.
+  and zero-weight query terms included: within rtol 1e-5 / atol 1e-5; its
+  store-addressed entry (the split mode's scorer, rows read in place)
+  against the reference's ``_score_blocks_kernel_batched`` (gather, then the
+  kernel in interpret mode, then the masks) on real and tiny indexes with
+  pad docs and a tombstone bitmap: within rtol 1e-6, ``-inf`` where and only
+  where the reference has it.
 * ``chunk_step`` and ``chunk_step_multi`` against the reference's jnp
   oracles (``chunk_step/ref.py``), not the Pallas kernel in interpret mode,
   which differs from its own oracle by an ulp on this box. The oracles take
@@ -29,6 +34,7 @@ from repro.core import build_impact_index as ref_build
 from repro.core import pad_queries
 from repro.core.daat import block_upper_bounds as ref_block_upper_bounds
 from repro.core.daat import csr_blockmax_offsets as ref_csr_offsets
+from repro.core.daat import _score_blocks_kernel_batched as ref_score_blocks_kernel
 from repro.core.daat import daat_plan, max_blocks_per_term, score_blocks
 from repro.core.topk import merge_topk as ref_merge_topk
 from repro.core.topk import topk as ref_topk
@@ -42,6 +48,7 @@ from repro_torch.core import ARRAY_FIELDS, META_FIELDS, index_from_numpy
 from repro_torch.core import daat_plan as port_daat_plan
 from repro_torch.core import max_blocks_per_term as port_max_bm
 from repro_torch.core import score_blocks as port_score_blocks
+from repro_torch.core.daat import _score_blocks_kernel_batched as port_score_blocks_kernel
 from repro_torch.core.topk import topk as port_topk
 from repro_torch.kernels.block_prune_csr import ops as prune_ops
 from repro_torch.kernels.block_topk import ops as topk_ops
@@ -211,6 +218,58 @@ def test_sparse_score_duplicate_query_terms_sum():
                                  torch.tensor([[2.0, 1.0]]),
                                  torch.tensor([3, 3], dtype=torch.int32), torch.tensor([1.0, 0.5]))
     assert got.tolist() == [3.0]
+
+
+def _store_case(request, name, seed):
+    """A reference index, the port's copy of it, queries (the tiny index's
+    repeat a term and carry a zero-weight slot) and each query's selected
+    blocks, always with the last block, whose tail holds pad docs."""
+    rng = np.random.default_rng(seed)
+    if name == "tiny":
+        ref, port = _tiny_index()
+        qt = rng.integers(0, 40, (5, 6)).astype(np.int32)
+        qw = rng.gamma(1.0, 1.0, qt.shape).astype(np.float32)
+        qt[:, 1], qw[:, 2] = qt[:, 0], 0.0
+        qt, qw = jnp.asarray(qt), jnp.asarray(qw)
+    else:
+        ref, qt, qw = request.getfixturevalue(name)
+        port = index_from_numpy({f: np.asarray(getattr(ref, f)) for f in ARRAY_FIELDS},
+                                {f: getattr(ref, f) for f in META_FIELDS}, device="cpu")
+    assert ref.n_docs < ref.doc_terms.shape[0]  # the last block holds pad docs
+    nb = min(3, ref.n_blocks)
+    ids = np.stack([np.concatenate([[ref.n_blocks - 1],
+                                    rng.choice(ref.n_blocks - 1, nb - 1, replace=False)])
+                    for _ in range(qt.shape[0])])
+    return ref, port, qt, qw, rng.permuted(ids, axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("live,gate", [(False, False), (True, False), (True, True)],
+                         ids=["all", "live", "live_gate"])
+@pytest.mark.parametrize("name", ["tiny", "splade_index", "bm25_index_q"])
+def test_sparse_score_store_entry_matches_reference_gather_and_score(request, name, live, gate):
+    ref, port, qt, qw, ids = _store_case(request, name, seed=len(name))
+    rng = np.random.default_rng(7)
+    mask = (rng.random(ref.doc_terms.shape[0]) < 0.7).astype(np.int32) if live else None
+    block_live = rng.random(ids.shape) < 0.6 if gate else None
+    want_s, want_d = ref_score_blocks_kernel(ref, qt, qw, jnp.asarray(ids),
+                                             None if mask is None else jnp.asarray(mask))
+    want_s = np.asarray(want_s)
+    if gate:
+        want_s = np.where(block_live[..., None], want_s, -np.inf)
+    qw_raw = torch.where(_t(qw) > 0, _t(qw), 0.0)
+    got = score_ops.sparse_score_blocks_batched(
+        port.doc_terms, port.doc_weights, _t(ids), _t(qt), qw_raw, block_size=port.block_size,
+        n_live=port.n_docs, live=None if mask is None else _t(mask),
+        block_live=None if block_live is None else _t(block_live))
+    got_s, got_d = port_score_blocks_kernel(port, _t(qt), _t(qw), _t(ids),
+                                            None if mask is None else _t(mask),
+                                            None if block_live is None else _t(block_live))
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+    assert np.isfinite(want_s).any() and not np.isfinite(want_s).all()
+    for g in (got.reshape(want_s.shape), got_s):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(np.isneginf(g.numpy()), np.isneginf(want_s))
+        np.testing.assert_allclose(g.numpy(), want_s, rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -155,6 +155,8 @@ def _daat_wrapper_calls(device):
             torch.zeros((B, 5, tmax), **i32), torch.ones((B, 5, tmax), **z), qt, qw),
         "sparse_score_single": lambda: score_ops.sparse_score(
             torch.zeros((5, tmax), **i32), torch.ones((5, tmax), **z), qt[0], qw[0]),
+        "sparse_score_blocks": lambda: score_ops.sparse_score_blocks_batched(
+            store_t, store_w, torch.zeros((B, 2), **i32), qt, qw, block_size=bs, n_live=nb * bs),
         "chunk_step": lambda: chunk_ops.chunk_step_batched(
             store_t, store_w, qt, qw, ub, proc, ps, pi, th, **chunk_kw),
         "chunk_step_multi": lambda: chunk_ops.chunk_step_multi_batched(
@@ -164,8 +166,8 @@ def _daat_wrapper_calls(device):
 
 
 def _daat_counters():
-    return (prune_ops.LAUNCHES, btopk_ops.LAUNCHES, score_ops.LAUNCHES, chunk_ops.LAUNCHES,
-            chunk_ops.MULTI_LAUNCHES, dense_prune_ops.LAUNCHES)
+    return (prune_ops.LAUNCHES, btopk_ops.LAUNCHES, score_ops.LAUNCHES, score_ops.STORE_LAUNCHES,
+            chunk_ops.LAUNCHES, chunk_ops.MULTI_LAUNCHES, dense_prune_ops.LAUNCHES)
 
 
 @pytest.mark.parametrize("wrapper", list(_daat_wrapper_calls("cpu")))

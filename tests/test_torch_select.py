@@ -15,14 +15,24 @@ On the CPU:
   store a chunk of 32 slots that holds one term id in two or more valid
   slots is padding, and so is the rest of the row;
 * the wrappers' launch logic: the cluster size from the batch and the SM
-  count, the shared memory of each kernel, and the shapes past the limit.
+  count, the shared memory of each kernel, and the shapes past the limit;
+* the scatter kernels' staged accumulation (``block_doc_sums`` in
+  ``csrc/scatter_common.cuh``), modelled in numpy: the doc starts its scan
+  finds in each shared-memory stage are the per-doc lower bounds, and the
+  sums carried across stages equal each doc's run added in row order, bit
+  for bit (empty docs, one-doc blocks, ranges over several stages);
+* ``impact_scatter_topk``'s rule between the select and the sort, at its
+  boundary, and the shared memory of both; the store-addressed scorer's
+  docs per CTA.
 
-On a card (marker ``cuda``; they skip here): ``block_topk`` and both
-``chunk_step`` launchers against their plain versions, bit for bit, at the
+On a card (marker ``cuda``; they skip here): ``block_topk``, both
+``chunk_step`` launchers, ``sparse_score``'s store-addressed entry and
+``impact_scatter_topk`` against their plain versions, bit for bit, at the
 edges: ties, all--inf rows, ragged widths, B = 1 and 63, k = 1000,
-tombstones, rows that leave a multi-trip launch at different trips. The
-chunk-step inputs have small integer weights, so every sum is exact in any
-order and the scores can be compared bit for bit.
+tombstones, rows that leave a multi-trip launch at different trips, pad
+docs, rows with no padding or no terms, empty blocks and ranges over
+several stages. The scoring inputs have small integer weights, so every sum
+is exact in any order and the scores can be compared bit for bit.
 """
 import numpy as np
 import pytest
@@ -37,6 +47,10 @@ from repro_torch.kernels.block_topk import ops as btopk_ops
 from repro_torch.kernels.block_topk import ref as btopk_ref
 from repro_torch.kernels.chunk_step import ops as chunk_ops
 from repro_torch.kernels.chunk_step import ref as chunk_ref
+from repro_torch.kernels.impact_scatter_topk import ops as fused_ops
+from repro_torch.kernels.impact_scatter_topk import ref as fused_ref
+from repro_torch.kernels.sparse_score import ops as score_ops
+from repro_torch.kernels.sparse_score import ref as score_ref
 
 pytestmark = pytest.mark.torch_port
 
@@ -171,6 +185,98 @@ def test_doc_store_rows_stop_at_their_padding():
 
 
 # ---------------------------------------------------------------------------
+# the scatter kernels' staged accumulation, modelled
+# ---------------------------------------------------------------------------
+
+
+def _staged_block_sums(docs, contribs, block_start, block_d, stage):
+    """``block_doc_sums`` step for step on one sorted row: the block's range
+    [lo, hi), then each stage of at most ``stage`` postings: the run starts
+    its scan writes (a posting whose doc differs from its predecessor's
+    starts that doc's run; the docs between take the same start; docs past
+    the stage's last doc start at its end), and each doc's run added in
+    order onto the sum carried from the earlier stages. Returns the sums and
+    each stage's (first posting, per-doc start) pairs."""
+    lo = int(np.searchsorted(docs, block_start, "left"))
+    hi = int(np.searchsorted(docs, block_start + block_d, "left"))
+    acc = np.zeros(block_d, np.float32)
+    stages = []
+    for p0 in range(lo, hi, stage):
+        n = min(stage, hi - p0)
+        ids = docs[p0:p0 + n] - block_start
+        vals = contribs[p0:p0 + n]
+        start = np.full(block_d, -1)
+        for i in range(n):
+            for e in range((-1 if i == 0 else ids[i - 1]) + 1, ids[i] + 1):
+                start[e] = i
+        last = ids[n - 1]
+        begin = np.array([start[t] if t <= last else n for t in range(block_d)])
+        end = np.array([start[t + 1] if t < last else n for t in range(block_d)])
+        for t in range(block_d):
+            for p in range(begin[t], end[t]):
+                acc[t] = np.float32(acc[t] + vals[p])
+        stages.append((p0, begin, end))
+    return acc, stages
+
+
+def _check_staged(docs, contribs, block_d, stage):
+    n_blocks = -(-int(docs.max(initial=0) + 1) // block_d)
+    for blk in range(n_blocks):
+        start = blk * block_d
+        acc, stages = _staged_block_sums(docs, contribs, start, block_d, stage)
+        for p0, begin, end in stages:
+            n = len(docs[p0:p0 + stage])
+            row = docs[p0:min(p0 + stage, len(docs))]
+            # a doc's start in the stage is its lower bound in the stage's slice,
+            # clamped to the block's range
+            keys = start + np.arange(block_d + 1)
+            lb = np.minimum(np.searchsorted(row, keys, "left"), n)
+            hi = int(np.searchsorted(docs, start + block_d, "left")) - p0
+            lb = np.minimum(lb, hi)
+            assert np.array_equal(begin, lb[:-1]) and np.array_equal(end, lb[1:])
+        # the per-doc lower bounds over the whole row, each run added in row order
+        bounds = np.searchsorted(docs, start + np.arange(block_d + 1), "left")
+        want = np.zeros(block_d, np.float32)
+        for t in range(block_d):
+            for p in range(bounds[t], bounds[t + 1]):
+                want[t] = np.float32(want[t] + contribs[p])
+        assert np.array_equal(acc.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("case", ["empty_docs", "one_doc_blocks", "stage_spanning", "empty_block"])
+def test_staged_doc_starts_are_the_per_doc_lower_bounds(case):
+    rng = np.random.default_rng(len(case))
+    block_d, stage = 16, 4 * 16
+    if case == "empty_docs":  # most docs have no posting
+        docs = rng.choice(np.arange(0, 64, 5), 40)
+    elif case == "one_doc_blocks":  # every posting of a block on one doc
+        docs = np.repeat([3, 20, 47], [5, 1, 9])
+    elif case == "stage_spanning":  # a block's range over several stages
+        docs = rng.integers(16, 32, 5 * stage + 3)
+    else:  # a block with no postings between two that have some
+        docs = np.concatenate([rng.integers(0, 16, 30), rng.integers(32, 48, 30)])
+    docs = np.sort(docs).astype(np.int32)
+    contribs = rng.gamma(2.0, 1.0, len(docs)).astype(np.float32)
+    _check_staged(docs, contribs, block_d, stage)
+
+
+@settings(max_examples=60, deadline=None)
+@given(
+    n=st.integers(0, 300),
+    n_docs=st.integers(1, 100),
+    block_d=st.sampled_from([8, 16, 32]),
+    per_thread=st.integers(1, 4),
+    seed=st.integers(0, 2**31 - 1),
+)
+def test_staged_block_sums_equal_row_order_sums(n, n_docs, block_d, per_thread, seed):
+    rng = np.random.default_rng(seed)
+    docs = np.sort(rng.integers(0, n_docs, n)).astype(np.int32)
+    contribs = rng.gamma(2.0, 1.0, n).astype(np.float32)
+    _check_staged(docs, contribs, block_d, per_thread * block_d)
+
+
+# ---------------------------------------------------------------------------
+# launch logic# ---------------------------------------------------------------------------
 # launch logic
 # ---------------------------------------------------------------------------
 
@@ -217,6 +323,43 @@ def test_block_topk_launch_shape(tile, k, threads, list_len):
 
 def test_block_topk_smem_past_the_limit():
     assert btopk_ops.block_topk_smem(60_000, 16) > common.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k_blk,select", [(1, True), (10, True), (16, True), (32, True),
+                                           (33, False), (64, False), (512, False)])
+def test_select_or_sort_rule_at_its_boundary(k_blk, select):
+    assert fused_ops.SELECT_MAX_K == 32
+    assert fused_ops.use_select(k_blk) is select
+    lay = fused_ops.impact_scatter_topk_layout(512, k_blk)
+    shape = common.scatter_shape(512)
+    list_len = min(k_blk, 32 * shape["dpt"])
+    n_keys = shape["threads"] // 32 * list_len if select else 512
+    assert lay == dict(shape, select=select, list_len=list_len, n_keys=n_keys,
+                       smem=8 * n_keys + 4 * 512 + shape["smem"])
+
+
+@pytest.mark.parametrize("block_d,dpt", [(64, 1), (128, 2), (256, 4), (512, 4), (1024, 4)])
+def test_scatter_shape_fits_every_block_d(block_d, dpt):
+    shape = common.scatter_shape(block_d)
+    assert shape["dpt"] == dpt and shape["threads"] == block_d // dpt >= 64
+    assert shape["threads"] % 32 == 0
+    # the stage (8 B a posting) and the run starts (4 B a doc)
+    assert shape["smem"] == 8 * shape["stage"] + 4 * block_d
+    for k in (1, 10, 32, 33, block_d):
+        assert fused_ops.impact_scatter_topk_layout(block_d, k)["smem"] <= common.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("batch,n,n_sms,span", [
+    (64, 2048, 132, 32), (64, 1024, 132, 32), (63, 2048, 132, 32), (1, 2048, 132, 8),
+    (1, 100_000, 132, 32), (4, 2048, 132, 8), (10, 2048, 132, 16), (4, 8, 132, 8),
+])
+def test_store_scorer_docs_per_cta(batch, n, n_sms, span):
+    """32 docs a CTA, fewer (a multiple of the CTA's 8 warps, at least 8)
+    where the batch would leave some of the card's CTA slots empty."""
+    assert score_ops.docs_per_cta(batch, n, n_sms) == span
+    assert span % 8 == 0
+    if span < score_ops.MAX_DOCS_PER_CTA:
+        assert batch * -(-n // span) >= min(n_sms * score_ops.CTAS_PER_SM, batch * -(-n // 8))
 
 
 # ---------------------------------------------------------------------------
@@ -309,3 +452,69 @@ def test_chunk_step_kernels_bit_for_bit(batch, k, budget, live, trips):
                                                       live=mask, **kw)
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g.cpu(), w)
+
+
+def _store_case(seed, batch, *, n_blocks=6, bs=32, nb=4, tmax=75, lq=6, vocab=100):
+    """A doc store as build_impact_index lays it out, doc 0 with no padding
+    and doc 1 with no terms, integer weights; queries that repeat a term and
+    carry a zero-weight slot; each query's blocks, always block 0 and the
+    last block, whose last 5 docs are pad docs."""
+    rng = np.random.default_rng(seed)
+    n_docs = n_blocks * bs
+    dt = np.full((n_docs, tmax), vocab, np.int32)
+    dw = np.zeros((n_docs, tmax), np.float32)
+    for d in range(n_docs):
+        n = tmax if d == 0 else 0 if d == 1 else int(rng.integers(0, tmax + 1))
+        dt[d, :n] = np.sort(rng.choice(vocab, n, replace=False))
+        dw[d, :n] = rng.integers(1, 4, n)
+    qt = rng.integers(0, vocab, (batch, lq)).astype(np.int32)
+    qw = rng.integers(1, 3, (batch, lq)).astype(np.float32)
+    qt[:, 1], qw[:, 2] = qt[:, 0], 0.0
+    ids = np.stack([np.concatenate([[0, n_blocks - 1],
+                                    1 + rng.choice(n_blocks - 2, nb - 2, replace=False)])
+                    for _ in range(batch)]).astype(np.int32)
+    live = torch.as_tensor(rng.random(n_docs) < 0.8, dtype=torch.int32)
+    gate = torch.as_tensor(rng.random((batch, nb)) < 0.7)
+    return [torch.as_tensor(a) for a in (dt, dw, ids, qt, qw)], live, gate, n_docs - 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,live,gate", [
+    (1, False, False), (63, False, False), (64, True, False), (64, False, True), (64, True, True),
+])
+def test_sparse_score_store_kernel_bit_for_bit(batch, live, gate):
+    dev = _cuda()
+    args, mask, block_live, n_live = _store_case(batch + 7 * live + 3 * gate, batch)
+    kw = dict(block_size=32, n_live=n_live, live=mask if live else None,
+              block_live=block_live if gate else None)
+    got = score_ops.sparse_score_blocks_launch(
+        *(a.to(dev) for a in args), **{k: v.to(dev) if torch.is_tensor(v) else v
+                                       for k, v in kw.items()})
+    assert torch.equal(got.cpu(), score_ref.sparse_score_blocks_ref(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 16, 32, 33, 512])
+def test_impact_scatter_topk_edges_bit_for_bit(k, live):
+    """An empty block, a range over more than three stages, a block of tombstoned
+    docs, pad docs in the last block and tied integer contributions."""
+    dev = _cuda()
+    rng = np.random.default_rng(k)
+    bd, n_docs, n_pad = 512, 4000, 4096
+    docs = rng.integers(0, n_docs, (3, 6000))
+    docs = np.where(docs // bd == 2, docs - bd, docs)
+    stage = common.scatter_shape(bd)["stage"]
+    docs = np.concatenate([docs, rng.integers(5 * bd, 6 * bd, (3, 3 * stage + 100))], axis=1)
+    c = rng.integers(1, 4, docs.shape).astype(np.float32)
+    docs, c = common.sorted_posting_tiles(torch.as_tensor(docs), torch.as_tensor(c), n_pad, 512)
+    mask = None
+    if live:
+        m = rng.random(n_pad) < 0.9
+        m[6 * bd:7 * bd] = False
+        mask = torch.as_tensor(m, dtype=torch.int32)
+    k_blk = min(k, bd)
+    gs, gi = fused_ops.impact_scatter_topk_launch(docs.to(dev), c.to(dev), n_pad, n_docs, k_blk,
+                                                  bd, None if mask is None else mask.to(dev))
+    ws, wi = fused_ref.impact_scatter_topk_block_ref(docs, c, n_pad, n_docs, k_blk, bd, mask)
+    assert torch.equal(gs.cpu(), ws) and torch.equal(gi.cpu(), wi)
