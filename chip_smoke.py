@@ -13,7 +13,11 @@ It needs one CUDA card and exits non-zero without one. In order:
    on a host copy of its inputs; both scatter kernels bit for bit at their
    edges (an empty block, a range over three shared-memory stages, a block
    of tombstoned docs, pad docs, tied scores, k_blk = 1, 10, 16, 32, 33 and
-   512 across the select-or-sort rule);
+   512 across the select-or-sort rule); ``block_prune_csr`` bit for bit at
+   its edges (blocks on both sides of every tile boundary, B = 1, 63 and 64
+   at the engine's widths, a window cut at the end of the lists, all pad
+   slots, NB not a multiple of the tile, one block) at every tile it is
+   swept over;
 3. generates one shard of a 32-way document-sharded MS MARCO passage
    deployment (276,307 docs, 256 queries) under the ``spladev2`` and
    ``bm25`` treatments, builds each impact index on the host and places it
@@ -32,7 +36,8 @@ It needs one CUDA card and exits non-zero without one. In order:
    padding or no terms, duplicate query terms, the live-block gate), with a
    sweep of its docs per CTA and a check that a split batch scores through
    it and makes no [B, N, Tmax] gather; ``impact_scatter_topk``'s select
-   and sort timed against each other at k_blk = 1 to 64;
+   and sort timed against each other at k_blk = 1 to 64; ``block_prune_csr``
+   at B = 64, 63 and 1 of the batch, and its tiles swept at B = 64 and 1;
 5. the SAAT path: after one warm-up batch per configuration, serves the
    256 queries in batches of 64 through ``saat_search`` with the fused
    kernel and with the scatter kernel, at k=10 for rho in {100k, 1M,
@@ -47,13 +52,18 @@ It needs one CUDA card and exits non-zero without one. In order:
    with equal ``WorkStats`` (but at near-ties, printed), and exact results
    must be rank-safe and match ``exhaustive_search``; prints the work
    counts, batch latencies, host syncs and a profiled batch;
-7. the dense ``block_prune`` on its oracle path: at the reference's
+7. the weight analysis (``core/wacky.py``): ``full_report`` of both
+   shards over every query at k = 10, one line each, its bounds (one
+   ``block_prune_csr`` launch a shard) equal bit for bit to
+   ``block_upper_bounds``; then ``frontier_table`` (``core/pareto.py``) of
+   the SAAT rho levels and DAAT modes measured above;
+8. the dense ``block_prune`` on its oracle path: at the reference's
    contract shapes against its plain version, then on one 64-query
    ``spladev2`` batch ``_dense_blockmax_rows`` and the kernel, with theta
    the batch's DAAT k-th scores, ub equal bit for bit to ``block_prune_csr``
    and to the plain version; timed beside the plain version and
    ``torch.bmm``;
-8. serving on the ``spladev2`` shard: ``AnytimeServer`` directly (SAAT,
+9. serving on the ``spladev2`` shard: ``AnytimeServer`` directly (SAAT,
    fused kernel, the CLI's rho ladder, a deadline under the top level's
    calibrated cost, every batch equal to ``saat_search`` at the rho served,
    the ``--eval-qrels`` sweep); through the admission queue on a
@@ -63,7 +73,7 @@ It needs one CUDA card and exits non-zero without one. In order:
    ``IndexHandle`` under ``replay_with_churn`` with one compaction (answers
    equal across it, every merged id live and rescored); and
    ``saat_search_vmap`` with the kernel scatter;
-9. the single-query wrappers (B = 1) of the scatter, fused top-k, block
+10. the single-query wrappers (B = 1) of the scatter, fused top-k, block
    top-k and scoring kernels, each called once on a query of the batch.
 
 Each path runs with the launch counters set to 0 just before and read just
@@ -91,12 +101,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import (  # noqa: E402
     DaatResult,
+    OperatingPoint,
     block_upper_bounds,
     build_impact_index,
     csr_blockmax_offsets,
     daat_plan,
     daat_search_batched,
     exhaustive_search,
+    frontier_table,
     max_blocks_per_term,
     max_segments_per_term,
     pad_queries,
@@ -106,6 +118,7 @@ from repro_torch.core import (  # noqa: E402
     saat_search,
     score_all_docs,
     score_blocks,
+    wacky,
 )
 from repro_torch.core.daat import _dense_blockmax_rows, _mask_dead_blocks  # noqa: E402
 from repro_torch.core.index_handle import IndexHandle  # noqa: E402
@@ -189,6 +202,21 @@ PRUNE_CASES = (
     ("b3_tiny", dict(batch=3, lq=5, nb=17, m=3, n_bm=40)),
     ("b2_single_slot", dict(batch=2, lq=1, nb=64, m=8, n_bm=100)),
 )
+# block_prune_csr at its edges (prune_inputs): lists holding the blocks on
+# both sides of every boundary of 32-block tiles (so of every swept tile),
+# the engine's widths (Lq 35, 2,159 blocks) at B = 1, 63 and 64, NB not a
+# multiple of the tile, a window cut at the end of the lists, all pad
+# slots, one block; each at every tile of the sweep and the wrapper's.
+PRUNE_EDGE_CASES = (
+    ("edges_b64_lq35_nb2159", dict(batch=64, lq=35, nb=2159, m=900, n_bm=40000, edge_tile=32)),
+    ("edges_b63_lq35_nb2159", dict(batch=63, lq=35, nb=2159, m=900, n_bm=40000, edge_tile=32)),
+    ("edges_b1_lq35_nb2159", dict(batch=1, lq=35, nb=2159, m=900, n_bm=40000, edge_tile=32)),
+    ("ragged_b3_lq9_nb300", dict(batch=3, lq=9, nb=300, m=60, n_bm=1200, edge_tile=32)),
+    ("cut_at_end_b2_lq5", dict(batch=2, lq=5, nb=200, m=30, n_bm=400, cut=1)),
+    ("all_pad_b4_lq8", dict(batch=4, lq=8, nb=2159, m=100, n_bm=2000, empty=1.0)),
+    ("one_block_b2", dict(batch=2, lq=3, nb=1, m=1, n_bm=10)),
+)
+PRUNE_SWEEP_TILES = (32, 64, 128, 256, 512, 1024, 2048)  # blocks a CTA
 BTOPK_CASES = (
     ("ragged", dict(n=1000, k=10, tile=256)),
     ("aligned", dict(n=8192, k=100, tile=1024)),
@@ -681,7 +709,7 @@ def make_data(n_docs, n_queries, seed, device):
     t0 = time.perf_counter()
     corpus = generate_corpus(CorpusConfig(n_docs=n_docs, n_queries=n_queries, seed=seed))
     print(f"corpus: {n_docs} docs, {n_queries} queries in {time.perf_counter() - t0:.1f} s (host)")
-    data = {}
+    data, raw_weights = {}, {}
     for m in TREATMENTS:
         t0 = time.perf_counter()
         enc = apply_treatment(corpus, m, seed=seed)
@@ -694,7 +722,8 @@ def make_data(n_docs, n_queries, seed, device):
               f"Tmax {index.max_doc_terms}, index {index.nbytes() / 1e9:.3f} GB on {device}, "
               f"built in {time.perf_counter() - t0:.1f} s")
         data[m] = (index, torch.as_tensor(qt, device=device), torch.as_tensor(qw, device=device))
-    return corpus, data
+        raw_weights[m] = enc.weights
+    return corpus, data, raw_weights
 
 
 def serve(data, n_batches=None):
@@ -840,11 +869,22 @@ def host(t):
 
 def prune_inputs(dims: dict, seed: int, device):
     """CSR block-max lists of random terms and per-(query, slot) windows into
-    them, a fifth of them empty pad slots; one row with theta = -inf."""
+    them, a fifth of them (or ``dims["empty"]``) empty pad slots; one row
+    with theta = -inf. ``edge_tile``: the first lists hold the blocks on both
+    sides of every multiple of it, and every query reads them. ``cut``: the
+    lists end at the end of the arrays, and each query's last window runs 7
+    entries past them."""
     rng = np.random.default_rng(seed)
     nb, m, n_bm = dims["nb"], dims["m"], dims["n_bm"]
     starts, counts, total = [], [], 0
     bm_block = np.zeros(n_bm, np.int32)
+    if dims.get("edge_tile"):
+        edges = [t for t0 in range(dims["edge_tile"], nb, dims["edge_tile"]) for t in (t0 - 1, t0)]
+        for lst in (edges, edges[::2], edges[1::2], [0, nb - 1]):
+            bm_block[total:total + len(lst)] = lst
+            starts.append(total)
+            counts.append(len(lst))
+            total += len(lst)
     while True:
         c = int(min(rng.integers(1, 2 * m + 1), nb))
         if total + c > n_bm:
@@ -856,10 +896,15 @@ def prune_inputs(dims: dict, seed: int, device):
     bm_weight = np.zeros(n_bm, np.float32)
     bm_weight[:total] = rng.gamma(1.0, 1.0, total)
     terms = rng.integers(0, len(starts), (dims["batch"], dims["lq"]))
+    if dims.get("edge_tile"):
+        terms[:, :4] = np.arange(4)
     base = np.asarray(starts, np.int32)[terms]
     cnt = np.minimum(np.asarray(counts, np.int32)[terms], m)
+    if dims.get("cut"):
+        bm_block, bm_weight = bm_block[:total], bm_weight[:total]
+        base[:, -1], cnt[:, -1] = starts[-1], counts[-1] + 7
     qw = rng.gamma(1.0, 1.0, terms.shape).astype(np.float32)
-    empty = rng.random(terms.shape) < 0.2
+    empty = rng.random(terms.shape) < dims.get("empty", 0.2)
     base[empty], cnt[empty], qw[empty] = total, 0, 0.0
     theta = rng.uniform(0.0, 2.0, dims["batch"]).astype(np.float32)
     theta[0] = -np.inf
@@ -867,16 +912,28 @@ def prune_inputs(dims: dict, seed: int, device):
                  for a in (bm_block, bm_weight, base, cnt, qw, theta))
 
 
+def prune_plain(args, n_blocks):
+    """The plain block_prune_csr on a host copy of the inputs."""
+    m = max(1, int(args[3].max())) if args[3].numel() else 1
+    return prune_ref.block_prune_csr_batched_ref(*(a.cpu() for a in args), n_blocks=n_blocks,
+                                                 max_bm_per_term=m)
+
+
+def prune_check(args, n_blocks, want, what, tiles=(prune_ops.PRUNE_TILE,)) -> None:
+    """block_prune_csr at each tile: ub equal bit for bit, the mask equal."""
+    for tile in tiles:
+        gu, gm = prune_ops.block_prune_csr_launch(*args, n_blocks, tile)
+        sync()
+        check(torch.equal(gu.cpu(), want[0]),
+              f"block_prune_csr {what} tile={tile}: ub differs from the plain version")
+        check(torch.equal(gm.cpu(), want[1]), f"block_prune_csr {what} tile={tile}: mask differs")
+
+
 def prune_phase(args, n_blocks, timed, what) -> dict:
     """block_prune_csr: ub equal bit for bit and the mask equal."""
     bm_block, bm_weight, base, cnt, qw, theta = args
     m = max(1, int(cnt.max()))
-    gu, gm = prune_ops.block_prune_csr_launch(*args, n_blocks)
-    wu, wm = prune_ref.block_prune_csr_batched_ref(*(a.cpu() for a in args), n_blocks=n_blocks,
-                                                   max_bm_per_term=m)
-    sync()
-    check(torch.equal(gu.cpu(), wu), f"block_prune_csr {what}: ub differs from the plain version")
-    check(torch.equal(gm.cpu(), wm), f"block_prune_csr {what}: mask differs")
+    prune_check(args, n_blocks, prune_plain(args, n_blocks), what)
     row = {"what": what, "max_abs_err": 0.0}
     if timed:
         B, lq = base.shape
@@ -899,6 +956,29 @@ def prune_phase(args, n_blocks, timed, what) -> dict:
             entries=n_entries, shape=[B, lq, n_blocks],
         )
     return row
+
+
+def prune_edge_phases(device, seed) -> None:
+    """block_prune_csr bit for bit at its edges (PRUNE_EDGE_CASES), at every
+    tile of the sweep and the wrapper's."""
+    tiles = tuple(sorted(set(PRUNE_SWEEP_TILES) | {prune_ops.PRUNE_TILE}))
+    for i, (name, dims) in enumerate(PRUNE_EDGE_CASES):
+        args = prune_inputs(dims, seed + 250 + i, device)
+        prune_check(args, dims["nb"], prune_plain(args, dims["nb"]), f"edge {name}", tiles)
+    print(f"block_prune_csr edge phases: {len(PRUNE_EDGE_CASES)} cases at tiles {list(tiles)}, "
+          f"each equal bit for bit to the plain version")
+
+
+def prune_tile_sweep(args, n_blocks, what) -> None:
+    """Graph ms of block_prune_csr by blocks a CTA, each tile held bit for
+    bit against the plain version first."""
+    want = prune_plain(args, n_blocks)
+    out = {}
+    for tile in PRUNE_SWEEP_TILES:
+        prune_check(args, n_blocks, want, f"sweep {what}", (tile,))
+        out[tile] = graph_ms(lambda: prune_ops.block_prune_csr_launch(*args, n_blocks, tile))
+    print(f"  block_prune_csr tile sweep {what}: ms (CUDA graph) by blocks a CTA "
+          f"{json.dumps(out)}; the wrapper takes {prune_ops.PRUNE_TILE}")
 
 
 def tied_scores(shape, seed, device, neg_inf_rows=0):
@@ -1368,6 +1448,7 @@ def daat_contract_phases(device, seed) -> dict:
     for i, (name, dims) in enumerate(PRUNE_CASES):
         prune_phase(prune_inputs(dims, seed + 200 + i, device), dims["nb"], False,
                     f"contract {name}")
+    prune_edge_phases(device, seed)
     for i, (name, dims) in enumerate(BTOPK_CASES + BTOPK_EDGE_CASES):
         single = "batch" not in dims
         scores = tied_scores((dims.get("batch", 1), dims["n"]), seed + 300 + i, device,
@@ -1412,9 +1493,15 @@ def daat_main_shape_phases(index, qt, qw, live) -> dict:
     base, cnt = csr_blockmax_offsets(index, qt, qw, mb)
     qw_raw = torch.where(qw > 0, qw.float(), 0.0)
     theta = torch.full((B,), float("-inf"), device=qt.device)
-    rows["block_prune_csr"].append(prune_phase(
-        (index.bm_block, index.bm_weight, base, cnt, qw.float().contiguous(), theta),
-        index.n_blocks, True, f"main B={B}"))
+    prune_args = (index.bm_block, index.bm_weight, base, cnt, qw.float().contiguous(), theta)
+    rows["block_prune_csr"].append(prune_phase(prune_args, index.n_blocks, True, f"main B={B}"))
+    for b, timed in ((1, True), (B - 1, False)):
+        rows["block_prune_csr"].append(prune_phase(
+            prune_args[:2] + tuple(a[:b].contiguous() for a in prune_args[2:]), index.n_blocks,
+            timed, f"main B={b}"))
+    for b in (B, 1):
+        prune_tile_sweep(prune_args[:2] + tuple(a[:b].contiguous() for a in prune_args[2:]),
+                         index.n_blocks, f"B={b}")
     ub = block_upper_bounds(index, qt, qw, mb)
     for n in (budget, est):
         rows["block_topk"].append(btopk_phase(ub, n, 8192, False, True, f"main B={B} k={n}"))
@@ -1466,6 +1553,71 @@ def daat_main_shape_phases(index, qt, qw, live) -> dict:
         for r in rs:
             print(f"  {name} {r['what']}: " + json.dumps({k: v for k, v in r.items() if k != "what"}))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the weight analysis (core/wacky.py, core/pareto.py)
+# ---------------------------------------------------------------------------
+
+
+def wacky_phase(data, raw_weights, k) -> dict:
+    """``full_report`` per treatment over every query, one line each, with
+    the launch counters set to 0 just before and read just after; each
+    number finite and each share in [0, 1]; then the bounds
+    ``skip_opportunity`` takes (one block_prune_csr launch a treatment) held
+    bit for bit against the plain ``block_upper_bounds``. Returns the
+    launches."""
+    sync()
+    reset_launches()
+    reports = {m: wacky.full_report(m, index, raw_weights[m], qt, qw, k=k)
+               for m, (index, qt, qw) in data.items()}
+    sync()
+    launches = read_launches()
+    check(launches["block_prune_csr"] == len(data),
+          f"the weight analysis launched block_prune_csr {launches['block_prune_csr']} times, "
+          f"not once a treatment")
+    for m, rep in reports.items():
+        print(f"wacky report {m} k={k} over {data[m][1].shape[0]} queries: {json.dumps(rep)}")
+        nums = [v for part in rep.values() if isinstance(part, dict) for v in part.values()]
+        check(all(np.isfinite(v) for v in nums), f"wacky {m}: a number is not finite")
+        check(all(0.0 <= v <= 1.0 for key, v in rep["skip"].items() if "fraction" in key)
+              and rep["skip"]["candidate_blocks_mean"] <= data[m][0].n_blocks,
+              f"wacky {m}: a skippable share or the candidate count is out of range")
+    for m, (index, qt, qw) in data.items():
+        mb = max_blocks_per_term(index)
+        check(torch.equal(wacky.batch_upper_bounds(index, qt, qw, mb),
+                          block_upper_bounds(index, qt, qw, mb)),
+              f"wacky {m}: skip_opportunity's bounds differ from block_upper_bounds")
+    print(f"wacky: skip_opportunity's bounds equal block_upper_bounds bit for bit; launches "
+          f"{ {n: v for n, v in launches.items() if v} }")
+    return launches
+
+
+def frontier_phase(data, qrels, rr, latency, d_results, d_latency) -> None:
+    """Operating points from this run's k = 10 batches: SAAT (fused kernel)
+    at each rho, DAAT in each mode, exact and one trip; RR@10 over every
+    query, latency the median batch over its B queries (host clock). Prints
+    ``frontier_table``."""
+    points = []
+    for (m, k, rho, route), v in latency.items():
+        if k == 10 and route == "fused":
+            points.append(OperatingPoint(f"{m}/saat-rho={rho}", m, "saat",
+                                         rr[f"{m} k={k} rho={rho}"], float(np.median(v)) / BATCH))
+    for (m, k, exact, mode), v in d_latency.items():
+        if k != 10:
+            continue
+        ids = [d_results[(m, k, exact, mode, lo)].doc_ids.cpu().numpy()
+               for lo in range(0, data[m][1].shape[0], BATCH)]
+        points.append(OperatingPoint(f"{m}/daat-{mode}{'' if exact else '-1trip'}", m, "daat",
+                                     mrr_at_k(np.concatenate(ids), qrels, 10),
+                                     float(np.median(v)) / BATCH))
+    table = frontier_table(points)
+    check(len(table) == len(points) and any(r["pareto"] for r in table),
+          "the frontier table is empty or has no point on the frontier")
+    print(f"frontier ({len(points)} operating points, k = 10, RR@10 and ms a query, host clock, "
+          f"B={BATCH}):")
+    for row in table:
+        print(f"  {json.dumps(row)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2166,7 +2318,7 @@ def run(args, device) -> None:
     scatter_edge_phases(device, args.seed)
     daat_errs = daat_contract_phases(device, args.seed)
     phase.end("kernel contracts")
-    corpus, data = make_data(args.n_docs, args.n_queries, args.seed, device)
+    corpus, data, raw_weights = make_data(args.n_docs, args.n_queries, args.seed, device)
     phase.end("corpus and index builds")
     index, qt, qw = data[MAIN_SHAPE[0]]
     rng = np.random.default_rng(args.seed)
@@ -2227,6 +2379,12 @@ def run(args, device) -> None:
               f"(one batch, B={BATCH}, host clock)")
     profile_daat_batch(index, qt[:BATCH], qw[:BATCH], 10)
     phase.end("DAAT path")
+
+    # the weight analysis over every query of both shards, and the frontier
+    # of this run's operating points
+    wacky_phase(data, raw_weights, SERVE_K)
+    frontier_phase(data, np.asarray(corpus.qrels), rr, latency, d_results, d_latency)
+    phase.end("weight analysis")
 
     # the dense prune's oracle path, then serving on the spladev2 shard
     dense_rows, dense_launches = dense_prune_phase(index, qt[:BATCH], qw[:BATCH], device, args.seed)

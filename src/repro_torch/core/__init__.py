@@ -9,9 +9,12 @@ block-max DAAT and the exhaustive oracle (ports of ``repro.core``).
     daat_search_batched                   block-max DAAT (plain, split, fused, multi-trip)
     daat_search_vmap / blockmax_search    per-query DAAT, the parity oracle
     exhaustive_search                     rank-safe exhaustive disjunction
+    IndexHandle, search_delta_pool        mutable lifecycle (delta, tombstones, compaction)
+    wacky.*                               weight-wackiness analysers
+    OperatingPoint, pareto_frontier       effectiveness/latency frontier
 
-``repro_torch.core.index_handle`` (the mutable index) is imported on its
-own: it builds on the engines.
+``index_handle`` builds on the engines (it imports ``daat`` and ``saat``
+from this package), so it is imported after them.
 """
 from repro_torch.core.daat import (  # noqa: F401
     DaatPlan,
@@ -55,3 +58,10 @@ from repro_torch.core.saat import (  # noqa: F401
     saat_search_vmap,
 )
 from repro_torch.core.topk import merge_pools_by_id, merge_topk, tiled_topk, topk  # noqa: F401
+from repro_torch.core.index_handle import (  # noqa: F401
+    HandleResult,
+    IndexHandle,
+    search_delta_pool,
+)
+from repro_torch.core import wacky  # noqa: F401
+from repro_torch.core.pareto import OperatingPoint, frontier_table, pareto_frontier  # noqa: F401

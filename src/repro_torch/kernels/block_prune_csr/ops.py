@@ -5,6 +5,13 @@ For CPU tensors, and only for those, it runs the plain version in
 call raises. Unlike the reference's wrapper it appends no pad behind the
 CSR lists and pads no block axis: the kernel cuts each window at the end
 of the lists and masks its own ragged tile.
+
+Precondition of the kernel (not of the plain version): within each window
+the block ids are distinct, ascend and lie in ``[0, n_blocks)``. Every
+index builder of the port gives that (the block-max lists come from
+``np.unique`` over ``term * n_blocks + block``).
+A CTA owns a (query, tile of ``tile`` blocks) and finds each slot's entries
+of its tile by a search of the window (:func:`prune_csr_layout`).
 """
 from __future__ import annotations
 
@@ -19,6 +26,25 @@ from repro_torch.kernels.block_prune_csr.ref import block_prune_csr_batched_ref
 # it to 0 before the main path and reads it after).
 LAUNCHES = 0
 
+# Blocks a CTA: the tile that chip_smoke.py's sweep found fastest on the
+# engine's [64, 35, 2159] batch (PERF.md).
+PRUNE_TILE = 128
+# Cells of a CTA's dense [group, tile] tile of products (40 KB of shared
+# memory): a round takes group = DENSE_CELLS // tile slots, at most Lq.
+DENSE_CELLS = 10_240
+
+
+def prune_csr_layout(lq: int, n_blocks: int, tile: int = PRUNE_TILE) -> dict:
+    """The kernel's launch shape: ``tile`` blocks a CTA, ``tiles`` CTAs a
+    query, ``group`` slots a round of the dense tile (``rounds`` rounds),
+    and the shared memory (bytes) of the dense tile, the bounds and the slot
+    descriptors."""
+    if not 1 <= tile <= DENSE_CELLS:
+        raise ValueError(f"tile={tile} must be in [1, {DENSE_CELLS}]")
+    group = max(1, min(lq, DENSE_CELLS // tile))
+    return dict(tile=tile, tiles=-(-n_blocks // tile), group=group, rounds=-(-lq // group),
+                smem=4 * (group * tile + tile + 4 * group + 1))
+
 
 def block_prune_csr_launch(
     bm_block: torch.Tensor,
@@ -28,11 +54,14 @@ def block_prune_csr_launch(
     q_weights: torch.Tensor,
     theta: torch.Tensor,
     n_blocks: int,
+    tile: int = PRUNE_TILE,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel: ``(ub f32, survive bool)[B, n_blocks]``.
 
-    ``bm_block`` i32 / ``bm_weight`` f32 ``[n_bm]``, ``base``/``cnt`` i32 and
-    ``q_weights`` f32 ``[B, Lq]`` (counts already clamped), ``theta`` f32[B].
+    ``bm_block`` i32 / ``bm_weight`` f32 ``[n_bm]`` (block ids distinct,
+    ascending and in ``[0, n_blocks)`` within each window), ``base``/``cnt``
+    i32 and ``q_weights`` f32 ``[B, Lq]`` (counts already clamped),
+    ``theta`` f32[B]; ``tile`` blocks a CTA.
     """
     global LAUNCHES
     common.check_cuda_tensors(bm_block, bm_weight, base, cnt, q_weights, theta)
@@ -44,16 +73,18 @@ def block_prune_csr_launch(
         raise ValueError("base, cnt and q_weights must be [B, Lq] and theta [B]")
     if bm_block.ndim != 1 or bm_weight.shape != bm_block.shape:
         raise ValueError("bm_block and bm_weight must be matching 1-D lists")
+    layout = prune_csr_layout(lq, n_blocks, tile)
     lib = common.kernel_library("block_prune_csr")
     fn = lib.block_prune_csr_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ub = torch.empty((B, n_blocks), dtype=torch.float32, device=base.device)
     survive = torch.empty((B, n_blocks), dtype=torch.bool, device=base.device)
     if B and n_blocks:
         code = fn(common.ptr(bm_block), common.ptr(bm_weight), common.ptr(base), common.ptr(cnt),
                   common.ptr(q_weights), common.ptr(theta), common.ptr(ub), common.ptr(survive),
-                  B, bm_block.shape[0], lq, n_blocks, common.stream_of(base))
+                  B, bm_block.shape[0], lq, n_blocks, tile, layout["group"],
+                  common.stream_of(base))
         common.raise_on_error("block_prune_csr", code)
         LAUNCHES += 1
     return ub, survive
@@ -76,7 +107,9 @@ def block_prune_csr_batched(
     ``base``/``cnt``: ``i32[B, Lq]`` window starts and entry counts
     (:func:`repro_torch.core.daat.csr_blockmax_offsets`); counts clamp to
     ``max_bm_per_term``. ``q_weights``: ``f32[B, Lq]``. ``theta``: ``f32[B]``
-    thresholds (``-inf`` for a pure bound pass).
+    thresholds (``-inf`` for a pure bound pass). The kernel needs the block
+    ids distinct and ascending within each window, as every index of the
+    port has them.
     """
     m = max_bm_per_term
     if m < 1:

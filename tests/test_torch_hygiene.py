@@ -9,10 +9,21 @@
 * the serving CLI (``python -m repro_torch.launch.serve``) runs end to end
   with ``--device cpu``, directly and through the admission queue with the
   counters endpoint, and raises without ``--device cpu`` when there is no
-  GPU.
+  GPU;
+* every name the reference's ``repro.metrics``, ``repro.kernels`` and
+  ``repro.core`` export, and every function and class of ``repro.core``'s
+  and ``repro.metrics``' modules, the port's counterpart has too, but for
+  the names of modules not yet ported (``NOT_YET_PORTED``); the kernels'
+  ``ops`` and ``ref`` modules still import by ``from ... import ops`` after
+  the package re-exports the wrappers.
 """
+import ast
+import importlib
+import inspect
 import json
 import os
+import pkgutil
+import types
 import subprocess
 import sys
 from pathlib import Path
@@ -71,7 +82,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "repro_torch.metrics.latency", "repro_torch.serving.bucketing",
         "repro_torch.serving.counters", "repro_torch.serving.scheduler",
         "repro_torch.serving.queue", "repro_torch.serving.lifecycle",
-        "repro_torch.launch.serve",
+        "repro_torch.launch.serve", "repro_torch.core.wacky", "repro_torch.core.pareto",
     }
     assert expected <= set(report["modules"])
 
@@ -267,3 +278,81 @@ def test_serve_cli_raises_without_a_gpu():
     out = _serve()
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr and out.stdout == ""
+
+
+# Names the reference exports whose modules the port has not ported yet,
+# with their queue item (ROADMAP.md, queue A).
+NOT_YET_PORTED = {
+    "sharded_topk_merge": "A10",
+    "canonical_topk_merge": "A10",
+}
+KERNEL_PACKAGES = ("block_prune", "block_prune_csr", "block_topk", "chunk_step",
+                   "impact_scatter", "impact_scatter_topk", "sparse_score")
+
+
+def _init_exports(package: str) -> set:
+    """The names a reference package's ``__init__.py`` binds: each name it
+    imports, and each of its own submodules it imports from."""
+    path = ROOT / "src" / Path(*package.split(".")) / "__init__.py"
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.module:
+            names.update(a.asname or a.name for a in node.names)
+            if node.module.startswith(package + "."):
+                names.add(node.module[len(package) + 1:].split(".")[0])
+    return names
+
+
+@pytest.mark.parametrize("package", ["metrics", "kernels", "core"])
+def test_port_packages_export_what_the_reference_exports(package):
+    port = importlib.import_module(f"repro_torch.{package}")
+    want = _init_exports(f"repro.{package}")
+    assert want, package
+    missing = sorted(n for n in want if not hasattr(port, n) and n not in NOT_YET_PORTED)
+    assert missing == []
+
+
+REF_MODULES = ("core.daat", "core.exhaustive", "core.impact_index", "core.index_handle",
+               "core.pareto", "core.quantization", "core.saat", "core.topk", "core.wacky",
+               "metrics.ir_metrics", "metrics.latency")
+
+
+def test_ref_modules_list_every_reference_module():
+    found = {f"{pkg}.{m.name}" for pkg in ("core", "metrics")
+             for m in pkgutil.iter_modules([str(ROOT / "src" / "repro" / pkg)])}
+    assert found == set(REF_MODULES)
+
+
+@pytest.mark.parametrize("module", REF_MODULES)
+def test_port_modules_define_what_the_reference_defines(module):
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    want = {n for n, obj in vars(ref).items()
+            if not n.startswith("_") and (inspect.isfunction(obj) or inspect.isclass(obj))
+            and obj.__module__ == ref.__name__}
+    missing = sorted(n for n in want if not hasattr(port, n) and n not in NOT_YET_PORTED)
+    assert missing == []
+
+
+def test_import_surface_of_the_acceptance_criteria():
+    from repro_torch.core import IndexHandle, pareto_frontier
+    from repro_torch.kernels import block_prune_batched, impact_scatter_batched
+    from repro_torch.metrics import LatencyStats, summarize_latencies
+
+    assert inspect.isclass(IndexHandle) and inspect.isclass(LatencyStats)
+    assert all(callable(f) for f in (pareto_frontier, block_prune_batched,
+                                     impact_scatter_batched, summarize_latencies))
+
+
+@pytest.mark.parametrize("kernel", KERNEL_PACKAGES)
+@pytest.mark.parametrize("part", ["ops", "ref"])
+def test_kernel_modules_still_import_after_the_re_exports(kernel, part):
+    import repro_torch.kernels as kernels
+
+    mod = getattr(__import__(f"repro_torch.kernels.{kernel}", fromlist=[part]), part)
+    assert isinstance(mod, types.ModuleType)
+    assert mod.__name__ == f"repro_torch.kernels.{kernel}.{part}"
+    # the package binds the wrapper of the same name, where there is one,
+    # as the reference's does
+    bound = getattr(kernels, kernel)
+    assert callable(bound) or isinstance(bound, types.ModuleType)
