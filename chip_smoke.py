@@ -13,11 +13,14 @@ It needs one CUDA card and exits non-zero without one. In order:
    on a host copy of its inputs; both scatter kernels bit for bit at their
    edges (an empty block, a range over three shared-memory stages, a block
    of tombstoned docs, pad docs, tied scores, k_blk = 1, 10, 16, 32, 33 and
-   512 across the select-or-sort rule); ``block_prune_csr`` bit for bit at
-   its edges (blocks on both sides of every tile boundary, B = 1, 63 and 64
-   at the engine's widths, a window cut at the end of the lists, all pad
-   slots, NB not a multiple of the tile, one block) at every tile it is
-   swept over;
+   512 across the select-or-sort rule); ``impact_scatter`` also at its
+   range edges (a run across every range boundary, runs longer than a range
+   and its read-past, an empty row, postings only on the first or the last
+   doc, doc spans of thousands of docs, real postings that end on a range
+   boundary) at every layout; ``block_prune_csr`` bit for bit at its edges
+   (blocks on both sides of every tile boundary, B = 1, 63 and 64 at the
+   engine's widths, a window cut at the end of the lists, all pad slots, NB
+   not a multiple of the tile, one block) at every tile it is swept over;
 3. generates one shard of a 32-way document-sharded MS MARCO passage
    deployment (276,307 docs, 256 queries) under the ``spladev2`` and
    ``bm25`` treatments, builds each impact index on the host and places it
@@ -27,7 +30,12 @@ It needs one CUDA card and exits non-zero without one. In order:
    versions as above and timed with CUDA events beside the plain version
    and a library yardstick where one PyTorch call computes the same; the
    kernel and the yardstick also as 50 calls replayed from one CUDA graph,
-   which leaves out the host's launch cost; ``block_topk`` and
+   which leaves out the host's launch cost, and for ``impact_scatter`` and
+   the dense ``block_prune`` also cold (the graph's calls rotate over copies
+   of their inputs that the L2 cannot hold) and, at B = 1, the host's
+   enqueue time a launch; ``impact_scatter`` at rho = 1M and 100k, B = 64,
+   63 and 1, with its layout (slots a range, ranges a CTA) swept at B = 64
+   and 1; ``block_topk`` and
    ``chunk_step`` also at their edges (ties, all--inf rows, ragged widths,
    B = 1 and 63, k = 1000, tombstones, rows that leave a multi-trip launch
    at different trips); ``sparse_score``'s store-addressed entry at the
@@ -58,11 +66,13 @@ It needs one CUDA card and exits non-zero without one. In order:
    ``block_upper_bounds``; then ``frontier_table`` (``core/pareto.py``) of
    the SAAT rho levels and DAAT modes measured above;
 8. the dense ``block_prune`` on its oracle path: at the reference's
-   contract shapes against its plain version, then on one 64-query
+   contract shapes and its edges (the engine's widths at B = 63 and 1, an
+   Lq of several rounds of loads, one block) against its plain version at
+   every tile, then on one 64-query
    ``spladev2`` batch ``_dense_blockmax_rows`` and the kernel, with theta
    the batch's DAAT k-th scores, ub equal bit for bit to ``block_prune_csr``
    and to the plain version; timed beside the plain version and
-   ``torch.bmm``;
+   ``torch.bmm``, hot and cold, with its tile swept at B = 64 and 1;
 9. serving on the ``spladev2`` shard: ``AnytimeServer`` directly (SAAT,
    fused kernel, the CLI's rho ladder, a deadline under the top level's
    calibrated cost, every batch equal to ``saat_search`` at the rho served,
@@ -171,6 +181,8 @@ RUNS = ((10, 100_000), (10, 1_000_000), (10, "exact"), (1000, 1_000_000))
 MAIN_SHAPE = ("spladev2", 10, 1_000_000)  # the (treatment, k, rho) the kernels line reports
 RTOL, ATOL = 1e-5, 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+L2_BYTES = 50e6  # H100 L2 cache: cold timings rotate over copies of twice this
+SCATTER_RHOS = (1_000_000, 100_000)  # B2's main shapes, beside B = 64 and 1
 
 # The reference kernels' CONTRACT.shape_grid (src/repro/kernels/*/ops.py),
 # copied: this script imports nothing of the JAX package.
@@ -273,6 +285,14 @@ DENSE_PRUNE_CASES = (
     ("b1", dict(batch=1, lq=8, nb=100)),
     ("b4_wide", dict(batch=4, lq=32, nb=2048)),
     ("b3_tiny", dict(batch=3, lq=5, nb=17)),
+)
+# B8 at its edges: the engine's widths at B = 63 and 1, an Lq of several
+# rounds of loads (300 slots; a thread loads 40 at a time), one block.
+DENSE_PRUNE_EDGE_CASES = (
+    ("engine_b63", dict(batch=63, lq=35, nb=2159)),
+    ("engine_b1", dict(batch=1, lq=35, nb=2159)),
+    ("lq_past_a_round", dict(batch=2, lq=300, nb=97)),
+    ("one_block", dict(batch=2, lq=3, nb=1)),
 )
 
 # Serving at the defaults of the serving CLI (src/repro_torch/launch/serve.py):
@@ -389,6 +409,50 @@ def graph_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cold_ms(call, inputs: tuple) -> float:
+    """Mean device time of ``call(*inputs)`` where the L2 cannot hold the
+    inputs: the calls of one CUDA graph rotate over copies of them, at least
+    two and enough that twice the L2's bytes lie between two uses of a
+    copy."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    copies = max(2, int(np.ceil(2 * L2_BYTES / max(nbytes, 1))))
+    sets = [tuple(t.clone() for t in inputs) for _ in range(copies)]
+    sync()
+    calls = [lambda a=a: call(*a) for a in sets] * max(1, -(-50 // copies))
+    for c in calls[:copies]:
+        c()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph, sets
+    return start.elapsed_time(end) / len(calls)
+
+
+def host_us(fn, n: int = 1000, reps: int = 7) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue: ``n`` calls timed
+    with ``time.perf_counter``, no synchronise inside; the median of
+    ``reps`` such runs (the host is shared). Only for a call whose device
+    time is under its host time, so the device is not the limit."""
+    fn()
+    sync()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append(1e6 * (time.perf_counter() - t0) / n)
+        sync()
+    return float(np.median(runs))
+
+
 def timings(kernel, plain, library=None, plain_iters: int = 10) -> dict:
     """A row's times: the kernel and its library yardstick with CUDA events
     around back-to-back calls and replayed from a CUDA graph, and the plain
@@ -481,14 +545,26 @@ def scatter_phase(docs_raw, contribs_raw, n_docs, block_d, tile_p, single, timed
         B = docs.shape[0]
         n_real = int((docs < n_docs_pad).sum())
         docs_long = docs.long()
+
+        def kernel():
+            return scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, block_d)
+
+        def library():
+            acc = torch.zeros((B, n_docs_pad + 1), device=docs.device)
+            return acc.scatter_add_(1, docs_long, c)
+
         row.update(
-            **timings(lambda: scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, block_d),
-                      lambda: scatter_ref.impact_scatter_batched_ref(docs, c, n_docs_pad),
-                      lambda: torch.zeros((B, n_docs_pad + 1), device=docs.device)
-                      .scatter_add_(1, docs_long, c)),
+            **timings(kernel, lambda: scatter_ref.impact_scatter_batched_ref(docs, c, n_docs_pad),
+                      library),
+            cold_ms=cold_ms(lambda d, v: scatter_ops.impact_scatter_launch(d, v, n_docs_pad,
+                                                                           block_d), (docs, c)),
             bound_ms=1e3 * (8 * n_real + 4 * B * n_docs_pad) / HBM_BYTES_PER_S,
             postings=n_real, shape=[B, int(docs.shape[1]), n_docs_pad],
+            layout=scatter_ops.range_layout(B, int(docs.shape[1]), n_docs_pad,
+                                            common.sm_count(docs.get_device())),
         )
+        if B == 1:
+            row.update(host_us=host_us(kernel), library_host_us=host_us(library))
     return row
 
 
@@ -613,6 +689,108 @@ def scatter_edge_phases(device, seed) -> None:
           f"docs, tied scores) at k_blk {routes}")
 
 
+def range_edge_rows(R, seed):
+    """Rows in B2's input layout (each sorted, the sentinel ``n_docs`` on
+    the tail) at ranges of ``R`` slots, ``P = 6R + 37`` slots a row (no
+    multiple of a range): a run across every range boundary; runs longer
+    than a range and than its read-past; an empty row; postings only on the
+    first doc; on the last; a sparse row whose doc spans hold thousands of
+    docs; a row whose real postings end on a range boundary. Returns
+    ``(docs i32[7, P], contribs f32[7, P], n_docs)``."""
+    rng = np.random.default_rng(seed)
+    n_docs, P = 40 * 2048, 6 * R + 37
+
+    def short_runs(n_slots, start, max_gap=5):
+        runs, d, at = [], start, 0
+        while at < n_slots:
+            d += int(rng.integers(1, max_gap + 1))
+            n = min(int(rng.integers(1, 5)), n_slots - at)
+            runs.append((d, n))
+            at += n
+        return runs, d
+
+    crossing, d, at = [], -1, 0
+    for k in range(1, 6):
+        runs, d = short_runs(k * R - 3 - at, d)
+        crossing += runs
+        d += 1
+        crossing.append((d, 6))  # slots kR - 3 .. kR + 2
+        at = k * R + 3
+    rows = [
+        crossing,
+        [(3, R // 2), (7, R + scatter_ops.EXTRA + 40), (8, 1), (9, 2 * R + 5)],
+        [],
+        [(0, 5)],
+        [(0, 2), (n_docs - 1, R + 1)],
+        [(int(d), 1) for d in np.unique(rng.integers(0, n_docs, 40))],
+        short_runs(R, -1)[0],
+    ]
+    docs = np.full((len(rows), P), n_docs, np.int32)
+    c = np.zeros((len(rows), P), np.float32)
+    for b, runs in enumerate(rows):
+        at = 0
+        for d, n in runs:
+            docs[b, at:at + n] = d
+            c[b, at:at + n] = rng.gamma(2.0, 1.0, n)
+            at += n
+    check(docs[0, R - 1] == docs[0, R] < n_docs and docs[6, R - 1] < n_docs <= docs[6, R],
+          "range edge rows: a boundary run or the row that ends on a boundary is missing")
+    return docs, c, n_docs
+
+
+RANGE_EDGE_STAGES = (1, 2, 4, 8)  # ranges a CTA at the edges: a row of 7 ranges, cut every way
+
+
+def scatter_range_edges(device, seed) -> None:
+    """B2 bit for bit against its plain version at its range edges
+    (``range_edge_rows``), at every slots-a-thread the kernel takes and at
+    1, 2, 4 and 8 ranges a CTA."""
+    chosen = scatter_ops.range_layout
+    try:
+        for spt in scatter_ops.SLOTS_PER_THREAD:
+            docs, c, n_docs = range_edge_rows(scatter_ops.THREADS * spt, seed + spt)
+            want = scatter_ref.impact_scatter_batched_ref(torch.as_tensor(docs),
+                                                          torch.as_tensor(c), n_docs)
+            args = (torch.as_tensor(docs, device=device), torch.as_tensor(c, device=device))
+            for stages in RANGE_EDGE_STAGES:
+                scatter_ops.range_layout = lambda *a, lay=(spt, stages): lay
+                got = scatter_ops.impact_scatter_launch(*args, n_docs, 512)
+                sync()
+                check(torch.equal(got.cpu(), want),
+                      f"impact_scatter range edges spt={spt} stages={stages}: sums differ")
+    finally:
+        scatter_ops.range_layout = chosen
+    print(f"impact_scatter range edges: a run across every range boundary, runs past a range "
+          f"and its read-past, an empty row, only the first or last doc, spans of thousands "
+          f"of docs, real postings ending on a boundary: equal bit for bit at slots a thread "
+          f"{list(scatter_ops.SLOTS_PER_THREAD)} and ranges a CTA {list(RANGE_EDGE_STAGES)}")
+
+
+def range_sweep(docs, c, n_docs_pad, what) -> None:
+    """B2 at each (slots a range, ranges a CTA), replayed from a CUDA graph;
+    each output equal to the wrapper's own choice's."""
+    chosen = scatter_ops.range_layout
+    want = scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, 512)
+    times = {}
+    try:
+        for spt in scatter_ops.SLOTS_PER_THREAD:
+            for stages in scatter_ops.STAGES:
+                scatter_ops.range_layout = lambda *a, lay=(spt, stages): lay
+                got = scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, 512)
+                check(torch.equal(got, want),
+                      f"impact_scatter {what} spt={spt} stages={stages}: output differs")
+                times[f"{scatter_ops.THREADS * spt}x{stages}"] = graph_ms(
+                    lambda: scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, 512), 20)
+    finally:
+        scatter_ops.range_layout = chosen
+    spt, stages = chosen(docs.shape[0], docs.shape[1], n_docs_pad,
+                         common.sm_count(docs.get_device()))
+    best = min(times, key=times.get)
+    print(f"  impact_scatter range sweep {what}: ms (CUDA graph) by slots a range x ranges a "
+          f"CTA {json.dumps(times)}; the wrapper takes {scatter_ops.THREADS * spt}x{stages}, "
+          f"the fastest {best}")
+
+
 def select_sweep(docs, c, n_docs_pad, n_live, block_d) -> None:
     """The fused kernel's block top-k by the select and by the sort at each
     k_blk, replayed from a CUDA graph; both equal."""
@@ -635,12 +813,11 @@ def select_sweep(docs, c, n_docs_pad, n_live, block_d) -> None:
 
 
 def scatter_shape_sweep(docs, c, n_docs_pad, n_live, block_d) -> None:
-    """Both scatter kernels (the fused one at k = 10) at each CTA shape:
-    docs a thread and postings staged a doc, replayed from a CUDA graph;
-    every shape's output equal to the wrapper's own choice's."""
+    """The fused scatter kernel at k = 10 at each CTA shape: docs a thread
+    and postings staged a doc, replayed from a CUDA graph; every shape's
+    output equal to the wrapper's own choice's."""
     chosen = common.scatter_shape
-    want = (scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, block_d),
-            *fused_ops.impact_scatter_topk_launch(docs, c, n_docs_pad, n_live, 10, block_d))
+    want = fused_ops.impact_scatter_topk_launch(docs, c, n_docs_pad, n_live, 10, block_d)
     times = {}
     try:
         for dpt in (1, 2, 4):
@@ -648,21 +825,17 @@ def scatter_shape_sweep(docs, c, n_docs_pad, n_live, block_d) -> None:
                 stage = per_doc * block_d
                 common.scatter_shape = lambda bd, dpt=dpt, stage=stage: dict(
                     dpt=dpt, threads=bd // dpt, stage=stage, smem=8 * stage + 4 * bd)
-                got = (scatter_ops.impact_scatter_launch(docs, c, n_docs_pad, block_d),
-                       *fused_ops.impact_scatter_topk_launch(docs, c, n_docs_pad, n_live, 10,
-                                                             block_d))
+                got = fused_ops.impact_scatter_topk_launch(docs, c, n_docs_pad, n_live, 10, block_d)
                 check(all(torch.equal(g, w) for g, w in zip(got, want)),
-                      f"scatter kernels at {dpt} docs a thread, stage {stage}: output differs")
-                times[f"dpt{dpt} stage{stage}"] = [
-                    graph_ms(lambda: scatter_ops.impact_scatter_launch(docs, c, n_docs_pad,
-                                                                       block_d), 20),
-                    graph_ms(lambda: fused_ops.impact_scatter_topk_launch(
-                        docs, c, n_docs_pad, n_live, 10, block_d), 20)]
+                      f"impact_scatter_topk at {dpt} docs a thread, stage {stage}: output differs")
+                times[f"dpt{dpt} stage{stage}"] = graph_ms(
+                    lambda: fused_ops.impact_scatter_topk_launch(docs, c, n_docs_pad, n_live, 10,
+                                                                 block_d), 20)
     finally:
         common.scatter_shape = chosen
-    print(f"  scatter shape sweep B={docs.shape[0]} block_d={block_d}: ms (CUDA graph) "
-          f"[impact_scatter, impact_scatter_topk k=10] by shape {json.dumps(times)}; the "
-          f"wrappers take {json.dumps(chosen(block_d))}")
+    print(f"  impact_scatter_topk shape sweep B={docs.shape[0]} block_d={block_d} k=10: ms "
+          f"(CUDA graph) by shape {json.dumps(times)}; the wrapper takes "
+          f"{json.dumps(chosen(block_d))}")
 
 
 def main_shape_phases(index, qt, qw, live) -> dict:
@@ -670,14 +843,26 @@ def main_shape_phases(index, qt, qw, live) -> dict:
     ms = max_segments_per_term(index)
     n_docs_pad = index.doc_terms.shape[0]
     plan = saat_plan(index, qt, qw, ms)
+    rows = {"impact_scatter": [], "impact_scatter_topk": []}
+    # B2 at rho = 1M and 100k, B = 64 and 1 (the kernels line reports the
+    # first row of each of B = 64 and 1); B = 63 untimed; its range swept
+    for rho in SCATTER_RHOS:
+        d, v, _ = _gather_postings_batched(index, plan, rho)
+        tag = f"rho={rho // 1000}k" if rho < 1_000_000 else "rho=1M"
+        B = d.shape[0]
+        rows["impact_scatter"].append(scatter_phase(
+            d, v, n_docs_pad, 512, 512, single=False, timed=True, what=f"main B={B} {tag}"))
+        rows["impact_scatter"].append(scatter_phase(
+            d[:1], v[:1], n_docs_pad, 512, 512, single=True, timed=True, what=f"main B=1 {tag}"))
+        scatter_phase(d[:63], v[:63], n_docs_pad, 512, 512, single=False, timed=False,
+                      what=f"main B=63 {tag}")
+        pad = common.round_up(index.n_docs, 512)
+        sd, sc = common.sorted_posting_tiles(d, v, pad, 512)
+        range_sweep(sd, sc, pad, f"B={B} {tag}")
+        range_sweep(sd[:1].contiguous(), sc[:1].contiguous(), pad, f"B=1 {tag}")
+        del d, v, sd, sc
     docs, contribs, _ = _gather_postings_batched(index, plan, 1_000_000)
     B = docs.shape[0]
-    rows = {"impact_scatter": [], "impact_scatter_topk": []}
-    rows["impact_scatter"].append(scatter_phase(
-        docs, contribs, n_docs_pad, 512, 512, single=False, timed=True, what=f"main B={B} rho=1M"))
-    rows["impact_scatter"].append(scatter_phase(
-        docs[:1], contribs[:1], n_docs_pad, 512, 512, single=True, timed=True,
-        what="main B=1 rho=1M"))
     for k in (10, 1000):
         for lv in (None, live):
             tag = f"main B={B} rho=1M k={k}{' live' if lv is not None else ''}"
@@ -1818,9 +2003,16 @@ def dense_prune_phase(index, qt, qw, device, seed) -> dict:
             got = tuple(t[None] for t in dense_prune_ops.block_prune(args[0][0], args[1][0],
                                                                      args[2][0]))
         dense_prune_check(got, want, f"block_prune wrapper {name}")
+    for i, (name, dims) in enumerate(DENSE_PRUNE_CASES + DENSE_PRUNE_EDGE_CASES):
+        args = dense_prune_inputs(dims, seed + 650 + i, device)
+        want = dense_prune_ref.block_prune_batched_ref(*(a.cpu() for a in args))
+        for tile in dense_prune_ops.TILES:
+            dense_prune_check(dense_prune_ops.block_prune_launch(*args, tile=tile), want,
+                              f"block_prune {name} tile={tile}")
     sync()
     print(f"dense prune contract phase: {len(DENSE_PRUNE_CASES)} shapes equal to the plain "
-          f"version bit for bit")
+          f"version bit for bit; with {len(DENSE_PRUNE_EDGE_CASES)} edge cases, at every tile "
+          f"{list(dense_prune_ops.TILES)}")
 
     mb = max_blocks_per_term(index)
     B = qt.shape[0]
@@ -1859,19 +2051,31 @@ def dense_prune_phase(index, qt, qw, device, seed) -> dict:
     for name, (bm, w, th) in (("block_prune", (dense, qwf, theta)),
                               ("block_prune_b1", (dense[:1], qwf[:1], theta[:1]))):
         b, lq, nb = bm.shape
+        kernel = lambda: dense_prune_ops.block_prune_launch(bm, w, th)  # noqa: E731
+        library = lambda: torch.bmm(w[:, None], bm)  # noqa: E731
         rows[name] = [{
             "what": f"main B={b}", "max_abs_err": 0.0,
-            **timings(lambda: dense_prune_ops.block_prune_launch(bm, w, th),
-                      lambda: dense_prune_ref.block_prune_batched_ref(bm, w, th),
-                      lambda: torch.bmm(w[:, None], bm)),
+            **timings(kernel, lambda: dense_prune_ref.block_prune_batched_ref(bm, w, th), library),
+            "cold_ms": cold_ms(dense_prune_ops.block_prune_launch, (bm, w, th)),
+            "library_cold_ms": cold_ms(lambda x, y: torch.bmm(y[:, None], x), (bm, w)),
             # each block maximum, weight and theta read once; ub (f32) and
             # the mask (bool) written once
             "bound_ms": 1e3 * (4 * b * lq * nb + 4 * b * lq + 4 * b + 5 * b * nb)
             / HBM_BYTES_PER_S,
             "shape": [b, lq, nb],
+            "tile": dense_prune_ops.PRUNE_TILE,
         }]
+        if b == 1:
+            rows[name][0].update(host_us=host_us(kernel), library_host_us=host_us(library))
         print(f"  {name} {rows[name][0]['what']}: "
               + json.dumps({k: v for k, v in rows[name][0].items() if k != "what"}))
+        times = {}
+        for tile in dense_prune_ops.TILES:
+            dense_prune_check(dense_prune_ops.block_prune_launch(bm, w, th, tile=tile),
+                              (ub[:b], mask[:b]), f"block_prune sweep B={b} tile={tile}")
+            times[tile] = graph_ms(lambda: dense_prune_ops.block_prune_launch(bm, w, th, tile=tile))
+        print(f"  block_prune tile sweep B={b}: ms (CUDA graph) by blocks a CTA "
+              f"{json.dumps(times)}; the wrapper takes {rows[name][0]['tile']}")
     return rows, launches
 
 
@@ -2316,6 +2520,7 @@ def run(args, device) -> None:
 
     err_s, err_t = contract_phases(device, args.seed)
     scatter_edge_phases(device, args.seed)
+    scatter_range_edges(device, args.seed)
     daat_errs = daat_contract_phases(device, args.seed)
     phase.end("kernel contracts")
     corpus, data, raw_weights = make_data(args.n_docs, args.n_queries, args.seed, device)

@@ -13,52 +13,111 @@
 // one add per entry, far below the card's rate.
 //
 // Design. The TPU kernel contracted a [1, Lq] x [Lq, NBt] tile on the MXU.
-// Here one CTA owns a (query, tile of TILE blocks) and one thread one block:
-// the query's weights sit in shared memory, and the thread walks the slots
-// in order, reading bm[b, l, j] for its j; neighbouring threads read
-// neighbouring blocks of one slot, so every load is coalesced. The sum
-// starts at 0 and adds slot by slot, the product and the sum rounded
-// separately (no FMA), so ub is equal bit for bit to the CSR kernel's
-// (block_prune_csr.cu) on the rows that _dense_blockmax_rows densifies, and
-// to a plain version that adds one slot at a time: a slot that lists no
-// entry for the block holds 0 there and adds exactly 0. The ragged last
-// tile is masked here, so the block axis needs no padding.
+// Here one CTA owns a (query, tile of TILE blocks), a thread a block. An
+// earlier design gave a CTA 256 blocks and walked the slots with a load a
+// slot, so a CTA was a chain of load latencies, and at B = 1 it left 9 CTAs
+// for 132 SMs. Now:
+//   - Each thread copies its block's maxima of a slab of slots, and the
+//     slots' weights, into shared memory with asynchronous copies
+//     (cp.async), every copy issued before the first add: one memory round
+//     trip a slab of SLAB / TILE slots (all 35 of the main path's in one).
+//     Neighbouring threads copy neighbouring blocks of one slot, so the
+//     reads coalesce.
+//   - Then each thread sums its block's column slot by slot from 0, the
+//     product and the sum rounded separately (no FMA), so ub is equal bit
+//     for bit to the CSR kernel's (block_prune_csr.cu) on the rows that
+//     _dense_blockmax_rows densifies, to block_upper_bounds, and to a plain
+//     version that adds one slot at a time: a slot that lists no entry for
+//     the block holds 0 there and adds exactly 0. A query of more slots
+//     than a slab is summed a slab at a time, still in slot order.
+//   - A tile of 64 blocks gives a batch of one 34 CTAs on the main path;
+//     the wrapper's tile is the fastest of a sweep at B = 1 and 64. The
+//     ragged last tile is masked here, so the block axis needs no padding.
+// Shared memory is dynamic and under 48 KB, so no attribute is set. At
+// [64, 35, 2159] it takes 0.0093 ms with inputs the L2 cannot hold, against
+// a 0.0060 ms bound (the earlier design: 0.0095), and 0.0055 replayed with
+// the L2 holding its 19.9 MB (0.0048); at B = 1 0.0023 replayed (0.0029);
+// scripts/ab_scatter_prune.py on an NVIDIA H100 80GB HBM3, 700.00 W.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 256;
+constexpr int SLAB = 8192;  // block maxima a CTA holds at once (32 KB)
 
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int TILE>
 __global__ void __launch_bounds__(TILE)
 block_prune_kernel(const float* __restrict__ bm, const float* __restrict__ qw,
                    const float* __restrict__ theta, float* __restrict__ ub,
                    unsigned char* __restrict__ survive, int lq, int nb) {
-  extern __shared__ float s_qw[];
+  constexpr int SLOTS = SLAB / TILE;  // slots a slab
+  extern __shared__ float s_bm[];     // [min(lq, SLOTS), TILE], then the slots' weights
+  float* s_qw = s_bm + min(lq, SLOTS) * TILE;
   const size_t row = blockIdx.y;
-  for (int l = threadIdx.x; l < lq; l += blockDim.x) s_qw[l] = __ldg(qw + row * lq + l);
-  __syncthreads();
-  const int j = blockIdx.x * TILE + threadIdx.x;
-  if (j >= nb) return;
-  const float* col = bm + row * lq * static_cast<size_t>(nb) + j;
+  const int j0 = blockIdx.x * TILE;
+  const int width = min(TILE, nb - j0);
+  const float* slab = bm + row * lq * static_cast<size_t>(nb) + j0;
+  const float* w = qw + row * lq;
+  const int j = threadIdx.x;
   float acc = 0.0f;
-  for (int l = 0; l < lq; ++l) {
-    acc = __fadd_rn(acc, __fmul_rn(s_qw[l], __ldg(col + static_cast<size_t>(l) * nb)));
+  for (int l0 = 0; l0 < lq; l0 += SLOTS) {
+    const int n = min(SLOTS, lq - l0);
+    if (j < width) {
+      for (int l = 0; l < n; ++l) {
+        copy_async4(s_bm + l * TILE + j, slab + static_cast<size_t>(l0 + l) * nb + j);
+      }
+    }
+    for (int l = j; l < n; l += TILE) copy_async4(s_qw + l, w + l0 + l);
+    wait_copies();
+    __syncthreads();
+    if (j < width) {
+      for (int l = 0; l < n; ++l) acc = __fadd_rn(acc, __fmul_rn(s_qw[l], s_bm[l * TILE + j]));
+    }
+    __syncthreads();  // the next slab overwrites this one
   }
-  const float th = __ldg(theta + row);
-  ub[row * nb + j] = acc;
-  survive[row * nb + j] = (acc > th) && (acc > 0.0f);
+  if (j < width) {
+    const float th = __ldg(theta + row);
+    ub[row * nb + j0 + j] = acc;
+    survive[row * nb + j0 + j] = (acc > th) && (acc > 0.0f);
+  }
+}
+
+template <int TILE>
+int launch(const float* bm, const float* qw, const float* theta, float* ub,
+           unsigned char* survive, int B, int lq, int nb, cudaStream_t stream) {
+  const int slots = min(lq, SLAB / TILE);
+  const size_t smem = (static_cast<size_t>(slots) * TILE + slots) * sizeof(float);
+  const dim3 grid((nb + TILE - 1) / TILE, B);
+  block_prune_kernel<TILE><<<grid, TILE, smem, stream>>>(bm, qw, theta, ub, survive, lq, nb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // bm f32[B, lq, nb], qw f32[B, lq], theta f32[B] -> ub f32[B, nb],
-// survive bool[B, nb]. Shared memory: lq floats.
+// survive bool[B, nb]; tile (blocks a CTA) one of 32, 64, 128, 256;
+// B <= 65535.
 extern "C" int block_prune_launch(const void* bm, const void* qw, const void* theta, void* ub,
-                                  void* survive, int B, int lq, int nb, void* stream) {
-  const dim3 grid((nb + TILE - 1) / TILE, B);
-  block_prune_kernel<<<grid, TILE, lq * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(bm), static_cast<const float*>(qw),
-      static_cast<const float*>(theta), static_cast<float*>(ub),
-      static_cast<unsigned char*>(survive), lq, nb);
-  return static_cast<int>(cudaGetLastError());
+                                  void* survive, int B, int lq, int nb, int tile, void* stream) {
+  const auto* b = static_cast<const float*>(bm);
+  const auto* q = static_cast<const float*>(qw);
+  const auto* th = static_cast<const float*>(theta);
+  auto* u = static_cast<float*>(ub);
+  auto* sv = static_cast<unsigned char*>(survive);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 32: return launch<32>(b, q, th, u, sv, B, lq, nb, s);
+    case 64: return launch<64>(b, q, th, u, sv, B, lq, nb, s);
+    case 128: return launch<128>(b, q, th, u, sv, B, lq, nb, s);
+    case 256: return launch<256>(b, q, th, u, sv, B, lq, nb, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

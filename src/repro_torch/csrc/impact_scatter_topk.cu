@@ -25,11 +25,11 @@
 //
 // Design. One CTA per (query, block), a thread per doc or per few docs
 // (dpt, so that more CTAs, each a chain of dependent loads, are in flight
-// on an SM). The accumulation is impact_scatter's (scatter_common.cuh): the
-// block's posting range is staged into shared memory in coalesced stages,
-// each doc's run is found there by one scan, and each doc's run is added in
-// row order, so the scores are bit-identical to the unfused kernel's (and
-// to the earlier design's). The block's scores stay in shared memory. Each key packs the
+// on an SM). The accumulation (scatter_common.cuh): the block's posting
+// range is staged into shared memory in coalesced stages, each doc's run is
+// found there by one scan, and each doc's run is added in row order, the
+// order the unfused kernel keeps, so the scores are bit-identical to its
+// sums (and to the earlier design's). The block's scores stay in shared memory. Each key packs the
 // score, mapped to an unsigned integer of the same order, above
 // 0xFFFFFFFF - local index (select_common.cuh), so keys are unique, order
 // by score and break ties toward the lower doc id, the tie rule of

@@ -1,6 +1,8 @@
-// Shared device code of the two SAAT scatter kernels (impact_scatter.cu,
-// impact_scatter_topk.cu): the per-block posting range search and the
-// per-doc sum, so both kernels add every doc's contributions in one order.
+// Device code of the fused SAAT scatter kernel (impact_scatter_topk.cu):
+// the per-block posting range search and the per-doc sum. Each doc's
+// contributions are added one by one in row order from 0, the order the
+// dense scatter (impact_scatter.cu, which cuts rows by posting slots and
+// does not search) keeps too, so both give every sum the same bits.
 //
 // What held the earlier per-doc sum back (impact_scatter_topk at 11x its
 // bound, 1.053 ms at rho = 1M; chip_smoke.py on an NVIDIA H100 80GB HBM3,

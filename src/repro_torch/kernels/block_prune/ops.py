@@ -11,8 +11,6 @@ For CPU tensors, and only for those, they run the plain version in
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import common
@@ -22,34 +20,38 @@ from repro_torch.kernels.block_prune.ref import block_prune_batched_ref
 # it to 0 before the main path and reads it after).
 LAUNCHES = 0
 
-# The kernel keeps one query's weights in (static-limit) shared memory.
-MAX_LQ = 48 * 1024 // 4
+# Blocks a CTA sums (TILE in the kernel): the tiles the kernel takes, and
+# the wrapper's, the fastest at B = 1 and at B = 64 of the main path's
+# [B, 35, 2159] bounds (chip_smoke.py sweeps them; PERF.md).
+TILES = (32, 64, 128, 256)
+PRUNE_TILE = 64
 
 
 def block_prune_launch(
-    blockmax: torch.Tensor, q_weights: torch.Tensor, theta: torch.Tensor
+    blockmax: torch.Tensor, q_weights: torch.Tensor, theta: torch.Tensor,
+    tile: int = PRUNE_TILE,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel: ``blockmax f32[B, Lq, NB]``, ``q_weights f32[B, Lq]``,
-    ``theta f32[B]`` -> ``(ub f32, survive bool)[B, NB]``."""
+    ``theta f32[B]`` -> ``(ub f32, survive bool)[B, NB]``. ``tile``: blocks a
+    CTA, one of ``TILES``."""
     global LAUNCHES
+    if tile not in TILES:
+        raise ValueError(f"tile must be one of {TILES}, got {tile}")
     common.check_cuda_tensors(blockmax, q_weights, theta)
     common.check_dtypes(blockmax=(blockmax, torch.float32), q_weights=(q_weights, torch.float32),
                         theta=(theta, torch.float32))
     B, lq, nb = blockmax.shape
     if q_weights.shape != (B, lq) or theta.shape != (B,):
         raise ValueError("q_weights must be [B, Lq] and theta [B] for blockmax [B, Lq, NB]")
-    if lq > MAX_LQ or B > 65535:
-        raise ValueError(f"the kernel takes Lq <= {MAX_LQ} and B <= 65535, got {lq}, {B}")
-    lib = common.kernel_library("block_prune")
-    fn = lib.block_prune_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ub = torch.empty((B, nb), dtype=torch.float32, device=blockmax.device)
-    survive = torch.empty((B, nb), dtype=torch.bool, device=blockmax.device)
+    if B > 65535:
+        raise ValueError(f"the kernel takes B <= 65535, got {B}")
+    ub = blockmax.new_empty((B, nb))
+    survive = blockmax.new_empty((B, nb), dtype=torch.bool)
     if B and nb:
-        code = fn(common.ptr(blockmax), common.ptr(q_weights), common.ptr(theta), common.ptr(ub),
-                  common.ptr(survive), B, lq, nb, common.stream_of(blockmax))
-        common.raise_on_error("block_prune", code)
+        common.launch("block_prune", "block_prune_launch", 5,
+                      (blockmax.data_ptr(), q_weights.data_ptr(), theta.data_ptr(),
+                       ub.data_ptr(), survive.data_ptr(), B, lq, nb, tile),
+                      blockmax.get_device())
         LAUNCHES += 1
     return ub, survive
 

@@ -15,7 +15,6 @@ of its tile by a search of the window (:func:`prune_csr_layout`).
 """
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -74,18 +73,14 @@ def block_prune_csr_launch(
     if bm_block.ndim != 1 or bm_weight.shape != bm_block.shape:
         raise ValueError("bm_block and bm_weight must be matching 1-D lists")
     layout = prune_csr_layout(lq, n_blocks, tile)
-    lib = common.kernel_library("block_prune_csr")
-    fn = lib.block_prune_csr_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     ub = torch.empty((B, n_blocks), dtype=torch.float32, device=base.device)
     survive = torch.empty((B, n_blocks), dtype=torch.bool, device=base.device)
     if B and n_blocks:
-        code = fn(common.ptr(bm_block), common.ptr(bm_weight), common.ptr(base), common.ptr(cnt),
-                  common.ptr(q_weights), common.ptr(theta), common.ptr(ub), common.ptr(survive),
-                  B, bm_block.shape[0], lq, n_blocks, tile, layout["group"],
-                  common.stream_of(base))
-        common.raise_on_error("block_prune_csr", code)
+        ptrs = tuple(t.data_ptr() for t in (bm_block, bm_weight, base, cnt, q_weights, theta,
+                                              ub, survive))
+        common.launch("block_prune_csr", "block_prune_csr_launch", 8,
+                      ptrs + (B, bm_block.shape[0], lq, n_blocks, tile, layout["group"]),
+                      base.get_device())
         LAUNCHES += 1
     return ub, survive
 

@@ -12,7 +12,6 @@ For CPU tensors, and only for those, stage 1 runs the plain version in
 """
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -59,16 +58,12 @@ def block_topk_launch(
         raise ValueError(f"tile={tile}, k={k} needs {smem} B of shared memory; the limit is "
                          f"{common.SMEM_LIMIT}")
     threads = select_threads(tile)
-    lib = common.kernel_library("block_topk")
-    fn = lib.block_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out_s = torch.empty((B, n // tile, k), dtype=torch.float32, device=scores.device)
     out_i = torch.empty((B, n // tile, k), dtype=torch.int32, device=scores.device)
     if B and n:
-        code = fn(common.ptr(scores), common.ptr(out_s), common.ptr(out_i), B, n, tile, k,
-                  threads, select_list_len(tile, k, threads), smem, common.stream_of(scores))
-        common.raise_on_error("block_topk", code)
+        common.launch("block_topk", "block_topk_launch", 3,
+                      (scores.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), B, n, tile, k,
+                       threads, select_list_len(tile, k, threads), smem), scores.get_device())
         LAUNCHES += 1
     return out_s, out_i
 

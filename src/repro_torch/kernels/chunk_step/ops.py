@@ -9,7 +9,6 @@ For CPU tensors, and only for those, the wrappers run the plain versions in
 """
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -91,7 +90,7 @@ def chunk_step_layout(nb: int, k: int, block_budget: int, block_size: int) -> di
     return dict(list_len=list_len, n_keys=n_keys, smem=smem)
 
 
-def _launch(name, state, live, trips_left, trips, block_budget, block_size, n_live):
+def _launch(state, live, trips_left, trips, block_budget, block_size, n_live):
     """Launch one of the two kernels; returns the new state (and trips_done)."""
     global LAUNCHES, MULTI_LAUNCHES
     dt, dw, qt, qw, ub, proc, ps, pi, th = state
@@ -103,29 +102,26 @@ def _launch(name, state, live, trips_left, trips, block_budget, block_size, n_li
     k, lq, tmax = ps.shape[1], qt.shape[1], dt.shape[1]
     check_query_width(lq)
     lay = chunk_step_layout(nb, k, block_budget, block_size)
-    cluster = cluster_size(B, torch.cuda.get_device_properties(ub.device).multi_processor_count)
-    lib = common.kernel_library("chunk_step")
+    cluster = cluster_size(B, common.sm_count(ub.get_device()))
     out_s, out_i = torch.empty_like(ps), torch.empty_like(pi)
     out_th, out_proc = torch.empty_like(th), torch.empty_like(proc)
-    live_ptr = ctypes.c_void_p(None) if live is None else common.ptr(live)
-    head = [common.ptr(t) for t in (ub, proc, ps, pi, th, qt, qw, dt, dw)] + [live_ptr]
-    outs = [common.ptr(t) for t in (out_s, out_i, out_th, out_proc)]
+    head = [t.data_ptr() for t in (ub, proc, ps, pi, th, qt, qw, dt, dw)]
+    head.append(None if live is None else live.data_ptr())
+    outs = [t.data_ptr() for t in (out_s, out_i, out_th, out_proc)]
     dims = [B, nb, k, lq, tmax, block_budget, block_size, n_live]
     tail = [lay["list_len"], lay["n_keys"], cluster, lay["smem"]]
     if trips_left is None:
-        fn = lib.chunk_step_launch
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        symbol, n_ptrs = "chunk_step_launch", 14
         args = head + outs + dims + tail
         result = (out_s, out_i, out_th, out_proc)
     else:
-        fn = lib.chunk_step_multi_launch
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        symbol, n_ptrs = "chunk_step_multi_launch", 16
         trips_done = torch.empty((B,), dtype=torch.int32, device=ub.device)
-        args = head + [common.ptr(trips_left)] + outs + [common.ptr(trips_done)] + dims + [trips] + tail
+        args = (head + [trips_left.data_ptr()] + outs + [trips_done.data_ptr()] + dims + [trips]
+                + tail)
         result = (out_s, out_i, out_th, out_proc, trips_done)
-    fn.restype = ctypes.c_int
     if B:
-        common.raise_on_error(name, fn(*args, common.stream_of(ub)))
+        common.launch("chunk_step", symbol, n_ptrs, tuple(args), ub.get_device())
         if trips_left is None:
             LAUNCHES += 1
         else:
@@ -166,7 +162,7 @@ def chunk_step_batched(
     kw = dict(block_budget=block_budget, block_size=block_size, n_live=n_live)
     if ub.device.type == "cpu":
         return chunk_step_batched_ref(*state, live=live, **kw)
-    return _launch("chunk_step", state, live, None, 1, **kw)
+    return _launch(state, live, None, 1, **kw)
 
 
 def chunk_step_multi_batched(
@@ -203,4 +199,4 @@ def chunk_step_multi_batched(
     if ub.device.type == "cpu":
         return chunk_step_multi_batched_ref(*state, trips_left, trips_per_launch=trips_per_launch,
                                             live=live, **kw)
-    return _launch("chunk_step_multi", state, live, trips_left, trips_per_launch, **kw)
+    return _launch(state, live, trips_left, trips_per_launch, **kw)

@@ -1,4 +1,5 @@
-"""Shared helpers for the scatter-family kernels, and the kernel builder.
+"""Shared helpers for the scatter-family kernels, the kernel builder and
+the launch path.
 
 The builder compiles each ``csrc/<name>.cu`` with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface under ``build/torch_kernels/``
@@ -7,6 +8,12 @@ at the repository root, the first time a kernel is used, and loads it with
 from outside the repository: with no ``nvcc`` or a failed build it raises.
 Each library's name carries a hash of its sources, so an edited source is
 rebuilt and a stale library is never loaded.
+
+Every wrapper launches through :func:`launch`: each C launcher is bound
+once (its argument types set, then cached), pointers go as plain ints from
+``data_ptr()``, and the stream is the current stream's raw handle, read
+without building a ``torch.cuda.Stream`` object, so a launch repeats no
+binding work on the host.
 """
 from __future__ import annotations
 
@@ -27,6 +34,10 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# (library, bound launcher) by (kernel, symbol): see launcher()
+_LAUNCHERS: dict[tuple[str, str], tuple[ctypes.CDLL, object]] = {}
+# streaming multiprocessors by device index: see sm_count()
+_SMS: dict[int, int] = {}
 
 # Shared memory one block may use on the H100 (227 KB, opted in above 48 KB).
 SMEM_LIMIT = 232_448
@@ -182,9 +193,9 @@ def kernel_library(name: str) -> ctypes.CDLL:
 
 def check_cuda_tensors(*tensors: torch.Tensor) -> None:
     """A kernel takes contiguous CUDA tensors on one device."""
-    dev = tensors[0].device
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"kernel inputs must share one CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
@@ -197,14 +208,48 @@ def check_dtypes(**named: tuple[torch.Tensor, torch.dtype]) -> None:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of the CUDA device ``index``, read once."""
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_handle(device_index: int) -> int:
+    """The raw handle of the current CUDA stream of a device, as an int.
+
+    It is the stream PyTorch launches on (the capturing stream while a CUDA
+    graph is captured), read without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
-def raise_on_error(name: str, code: int) -> None:
+def launcher(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The C launcher ``symbol`` of ``csrc/<name>.cu``, bound once.
+
+    Its argument types (``n_ptrs`` pointers, ``n_ints`` ints, then the
+    stream) and its int result are set when it is first asked for, and the
+    bound function is cached for as long as the same library stays loaded.
+    ``c_void_p`` pointer types pass a pointer whole (64 bits), where an
+    untyped argument would go as a 32-bit int."""
+    lib = _LIBS.get(name)
+    hit = _LAUNCHERS.get((name, symbol))
+    if hit is not None and hit[0] is lib:
+        return hit[1]
+    lib = kernel_library(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _LAUNCHERS[(name, symbol)] = (lib, fn)
+    return fn
+
+
+def launch(name: str, symbol: str, n_ptrs: int, args: tuple, device_index: int) -> None:
+    """Launch a kernel through its C launcher on the current stream of
+    ``device_index``. ``args`` are the launcher's ``n_ptrs`` pointers (ints
+    from ``data_ptr()``, or None for a null pointer) and then its ints.
+    Raises if the launch failed."""
+    fn = launcher(name, symbol, n_ptrs, len(args) - n_ptrs)
+    code = fn(*args, stream_handle(device_index))
     if code != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {code}")
+        raise RuntimeError(f"CUDA kernel {symbol} failed to launch: cudaError {code}")

@@ -7,7 +7,7 @@ CUDA tensor the kernel runs or the call raises.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
@@ -18,36 +18,67 @@ from repro_torch.kernels.impact_scatter.ref import impact_scatter_batched_ref
 # it to 0 before the main path and reads it after).
 LAUNCHES = 0
 
+# The kernel (``csrc/impact_scatter.cu``) cuts each row into ranges of
+# THREADS * spt posting slots, spt one of SLOTS_PER_THREAD (a warp takes 32
+# * spt of them, a lane spt), and gives a CTA ``stages`` consecutive ranges,
+# one staged in shared memory while the one before it is summed. A range
+# also stages the EXTRA slots after it, for a run that goes on past its end
+# (a longer run reads on one slot a load).
+THREADS = 256
+SLOTS_PER_THREAD = (2, 4, 8)
+STAGES = (1, 2, 4, 8, 16, 32)
+EXTRA = 64
+# CTAs an SM should get from a batch before a CTA takes more ranges.
+CTAS_PER_SM = 56
+
+
+@functools.lru_cache(maxsize=256)
+def range_layout(batch: int, n_slots: int, n_docs: int, n_sms: int) -> tuple[int, int]:
+    """``(spt, stages)`` for ``[batch, n_slots]`` slots over ``n_docs`` docs.
+
+    spt follows the slots a doc: the least of ``SLOTS_PER_THREAD`` at or
+    above ``n_slots / n_docs`` (the most where none is). Dense rows (rho =
+    1M on the 276,307-doc shard: 3.6 slots a doc) take longer lanes; sparse
+    ones (100k: 0.36) more, shorter units, whose warps share the writing
+    of the wide doc spans between postings. Then the most ranges a CTA that
+    still gives every SM ``CTAS_PER_SM`` CTAs (one where none does). Both
+    rules are the fastest of ``chip_smoke.py``'s sweep at B = 1 and 64, rho
+    = 1M and 100k (``PERF.md``)."""
+    spt = next((s for s in SLOTS_PER_THREAD if s * n_docs >= n_slots), SLOTS_PER_THREAD[-1])
+    n_ranges = -(-n_slots // (THREADS * spt))
+    stages = STAGES[0]
+    for k in STAGES:
+        if max(batch, 1) * -(-n_ranges // k) >= CTAS_PER_SM * n_sms:
+            stages = k
+    return spt, stages
+
 
 def impact_scatter_launch(
     docs: torch.Tensor, contribs: torch.Tensor, n_docs: int, block_d: int
 ) -> torch.Tensor:
     """Launch the kernel on sorted postings. f32[B, n_docs] on the card.
 
-    ``docs`` i32[B, P] sorted per row with values in ``[0, n_docs]``,
-    ``contribs`` f32[B, P]; ``n_docs % block_d == 0``.
+    ``docs`` i32[B, P] sorted per row with values in ``[0, n_docs]`` (the
+    sentinel ``n_docs`` on slots that carry nothing), ``contribs``
+    f32[B, P]; ``n_docs % block_d == 0``.
     """
     global LAUNCHES
     common.check_block_d(block_d)
     common.check_cuda_tensors(docs, contribs)
-    if docs.dtype != torch.int32 or contribs.dtype != torch.float32:
-        raise TypeError(f"expected i32 docs and f32 contribs, got {docs.dtype}, {contribs.dtype}")
+    common.check_dtypes(docs=(docs, torch.int32), contribs=(contribs, torch.float32))
     if docs.ndim != 2 or docs.shape != contribs.shape:
         raise ValueError(f"expected matching [B, P] inputs, got {docs.shape}, {contribs.shape}")
     if n_docs % block_d:
         raise ValueError(f"n_docs {n_docs} is not a multiple of block_d {block_d}")
-    shape = common.scatter_shape(block_d)
-    lib = common.kernel_library("impact_scatter")
-    fn = lib.impact_scatter_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     B, P = docs.shape
-    out = torch.empty((B, n_docs), dtype=torch.float32, device=docs.device)
+    if B > 65535:
+        raise ValueError(f"the kernel takes B <= 65535, got {B}")
+    out = contribs.new_empty((B, n_docs))
     if B and n_docs:
-        code = fn(common.ptr(docs), common.ptr(contribs), common.ptr(out),
-                  B, P, n_docs, block_d, shape["dpt"], shape["stage"], shape["smem"],
-                  common.stream_of(docs))
-        common.raise_on_error("impact_scatter", code)
+        spt, stages = range_layout(B, P, n_docs, common.sm_count(docs.get_device()))
+        common.launch("impact_scatter", "impact_scatter_launch", 3,
+                      (docs.data_ptr(), contribs.data_ptr(), out.data_ptr(), B, P, n_docs, spt,
+                       stages), docs.get_device())
         LAUNCHES += 1
     return out
 

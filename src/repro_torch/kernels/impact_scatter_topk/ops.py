@@ -13,7 +13,6 @@ call raises.
 """
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -83,21 +82,17 @@ def impact_scatter_topk_launch(
     if live is not None and (live.dtype != torch.int32 or live.shape != (n_docs,)):
         raise ValueError(f"live must be i32[{n_docs}], got {live.dtype}{list(live.shape)}")
     lay = impact_scatter_topk_layout(block_d, k)
-    lib = common.kernel_library("impact_scatter_topk")
-    fn = lib.impact_scatter_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     B, P = docs.shape
     nb = n_docs // block_d
     out_s = torch.empty((B, nb, k), dtype=torch.float32, device=docs.device)
     out_i = torch.empty((B, nb, k), dtype=torch.int32, device=docs.device)
     if B and nb:
-        live_ptr = ctypes.c_void_p(None) if live is None else common.ptr(live)
-        code = fn(common.ptr(docs), common.ptr(contribs), live_ptr,
-                  common.ptr(out_s), common.ptr(out_i),
-                  B, P, n_docs, n_live, block_d, k, lay["dpt"], lay["stage"], int(lay["select"]),
-                  lay["n_keys"], lay["list_len"], lay["smem"], common.stream_of(docs))
-        common.raise_on_error("impact_scatter_topk", code)
+        common.launch("impact_scatter_topk", "impact_scatter_topk_launch", 5,
+                      (docs.data_ptr(), contribs.data_ptr(),
+                       None if live is None else live.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                       B, P, n_docs, n_live, block_d, k, lay["dpt"], lay["stage"],
+                       int(lay["select"]), lay["n_keys"], lay["list_len"], lay["smem"]),
+                      docs.get_device())
         LAUNCHES += 1
     return out_s, out_i
 

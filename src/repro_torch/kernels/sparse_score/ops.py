@@ -13,7 +13,6 @@ kernel masks its own ragged tail.
 """
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -60,16 +59,12 @@ def sparse_score_launch(
     if doc_weights.shape != doc_terms.shape or q_terms.shape != (B, lq) or q_weights.shape != (B, lq):
         raise ValueError("expected [B, N, Tmax] doc rows and [B, Lq] queries")
     check_query_width(lq)
-    lib = common.kernel_library("sparse_score")
-    fn = lib.sparse_score_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((B, n), dtype=torch.float32, device=doc_terms.device)
     if B and n:
-        code = fn(common.ptr(doc_terms), common.ptr(doc_weights), common.ptr(q_terms),
-                  common.ptr(q_weights), common.ptr(out), B, n, tmax, lq, GATHERED_DOCS_PER_CTA,
-                  common.stream_of(doc_terms))
-        common.raise_on_error("sparse_score", code)
+        common.launch("sparse_score", "sparse_score_launch", 5,
+                      (doc_terms.data_ptr(), doc_weights.data_ptr(), q_terms.data_ptr(),
+                       q_weights.data_ptr(), out.data_ptr(), B, n, tmax, lq,
+                       GATHERED_DOCS_PER_CTA), doc_terms.get_device())
         LAUNCHES += 1
     return out
 
@@ -122,20 +117,15 @@ def sparse_score_blocks_launch(
                          f"{block_live.dtype}{list(block_live.shape)}")
     check_query_width(lq)
     n = nb * block_size
-    span = docs_per_cta(B, n, torch.cuda.get_device_properties(doc_terms.device).multi_processor_count)
-    lib = common.kernel_library("sparse_score")
-    fn = lib.sparse_score_blocks_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    span = docs_per_cta(B, n, common.sm_count(doc_terms.get_device()))
     out = torch.empty((B, n), dtype=torch.float32, device=doc_terms.device)
     if B and n:
-        none = ctypes.c_void_p(None)
-        code = fn(common.ptr(doc_terms), common.ptr(doc_weights), common.ptr(block_ids),
-                  none if live is None else common.ptr(live),
-                  none if block_live is None else common.ptr(block_live),
-                  common.ptr(q_terms), common.ptr(q_weights), common.ptr(out),
-                  B, nb, block_size, n_live, tmax, lq, span, common.stream_of(doc_terms))
-        common.raise_on_error("sparse_score_blocks", code)
+        common.launch("sparse_score", "sparse_score_blocks_launch", 8,
+                      (doc_terms.data_ptr(), doc_weights.data_ptr(), block_ids.data_ptr(),
+                       None if live is None else live.data_ptr(),
+                       None if block_live is None else block_live.data_ptr(),
+                       q_terms.data_ptr(), q_weights.data_ptr(), out.data_ptr(),
+                       B, nb, block_size, n_live, tmax, lq, span), doc_terms.get_device())
         STORE_LAUNCHES += 1
     return out
 
