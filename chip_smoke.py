@@ -83,7 +83,18 @@ It needs one CUDA card and exits non-zero without one. In order:
    ``IndexHandle`` under ``replay_with_churn`` with one compaction (answers
    equal across it, every merged id live and rescored); and
    ``saat_search_vmap`` with the kernel scatter;
-10. the single-query wrappers (B = 1) of the scatter, fused top-k, block
+10. doc-sharded serving: the ``spladev2`` corpus re-sharded 4 ways with
+   ``shard_corpus`` and stacked on the card; the pod step at (pod = 2,
+   model = 2) and the sharded step at (1, 1) with all 4 shards on one
+   rank, SAAT through both scatter kernels and DAAT fused, against the
+   unsharded engines (near-ties checked) and each other (bit for bit); the
+   (1, 1) step over an NCCL process group of one rank, bit for bit; the
+   tombstone bitmap through ``shard_live_stack``; a ``PodFrontEnd`` of 2
+   hosts at the queue's settings, each completion equal to the pod step at
+   its rho; then, printed, the pod step's latency, each shard's engine time
+   (SAAT at 250k and exact, DAAT with its trips), RR@10 at 4 x 250k and
+   the merge's time;
+11. the single-query wrappers (B = 1) of the scatter, fused top-k, block
    top-k and scoring kernels, each called once on a query of the batch.
 
 Each path runs with the launch counters set to 0 just before and read just
@@ -98,14 +109,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
 from collections import namedtuple
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -133,8 +147,9 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.daat import _dense_blockmax_rows, _mask_dead_blocks  # noqa: E402
 from repro_torch.core.index_handle import IndexHandle  # noqa: E402
 from repro_torch.core.saat import _gather_postings_batched, saat_search_vmap  # noqa: E402
-from repro_torch.core.topk import topk  # noqa: E402
+from repro_torch.core.topk import canonical_topk_merge, topk  # noqa: E402
 from repro_torch.data.synthetic import CorpusConfig, generate_corpus  # noqa: E402
+from repro_torch.distributed import make_mesh  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.block_prune import ops as dense_prune_ops  # noqa: E402
 from repro_torch.kernels.block_prune import ref as dense_prune_ref  # noqa: E402
@@ -163,14 +178,23 @@ from repro_torch.serving import (  # noqa: E402
     AnytimeServer,
     CompactionPolicy,
     Compactor,
+    PodFrontEnd,
     ServingConfig,
     effective_lq,
+    make_pod_serve_step,
+    make_sharded_serve_step,
     pad_to_width,
+    rank_block,
     replay_arrivals,
     replay_with_churn,
     run_query_stream,
     sentinel_rows,
+    shard_corpus,
+    shard_live_stack,
+    stack_indexes,
+    warmup_pod,
 )
+from repro_torch.serving.sharded import _index_data_dict, _local_index  # noqa: E402
 
 # MS MARCO passage v1 holds 8,841,823 passages; one shard of 32.
 N_DOCS = 276_307
@@ -307,6 +331,14 @@ QUEUE_SAFETY_MS = 2.0
 QUEUE_REQUESTS = 1024
 CHURN_REQUESTS = 512
 CHURN_MUTATE_QPS = 800.0
+
+# Doc-sharded serving: the spladev2 shard re-sharded 4 ways (one card's
+# worth of a document-sharded deployment), served by the pod step at 2
+# ingestion hosts of 2 ranks, and by one rank holding all 4 shards
+SHARDS = 4
+POD_LAYOUT = (2, 2)  # (pod, model)
+SHARD_RHO = 250_000  # a shard's budget: 4 x 250k against the unsharded 1M
+POD_REQUESTS = 256
 
 # DAAT at the reference's serving defaults (src/repro/serving/scheduler.py)
 DAAT_KW = dict(est_blocks=8, block_budget=16)
@@ -894,7 +926,7 @@ def make_data(n_docs, n_queries, seed, device):
     t0 = time.perf_counter()
     corpus = generate_corpus(CorpusConfig(n_docs=n_docs, n_queries=n_queries, seed=seed))
     print(f"corpus: {n_docs} docs, {n_queries} queries in {time.perf_counter() - t0:.1f} s (host)")
-    data, raw_weights = {}, {}
+    data, encs = {}, {}
     for m in TREATMENTS:
         t0 = time.perf_counter()
         enc = apply_treatment(corpus, m, seed=seed)
@@ -907,8 +939,8 @@ def make_data(n_docs, n_queries, seed, device):
               f"Tmax {index.max_doc_terms}, index {index.nbytes() / 1e9:.3f} GB on {device}, "
               f"built in {time.perf_counter() - t0:.1f} s")
         data[m] = (index, torch.as_tensor(qt, device=device), torch.as_tensor(qw, device=device))
-        raw_weights[m] = enc.weights
-    return corpus, data, raw_weights
+        encs[m] = enc
+    return corpus, data, encs
 
 
 def serve(data, n_batches=None):
@@ -2423,6 +2455,283 @@ def churn_phase(index, qt_np, qw_np, seed) -> None:
           f"live and rescored; launches {launches}")
 
 
+def shard_stack(enc, n_docs, device, card):
+    """The spladev2 corpus re-sharded ``SHARDS`` ways with ``shard_corpus``
+    (each shard built on the host, placed on the card) and stacked there."""
+    t0 = time.perf_counter()
+    shards, dps = shard_corpus(enc.doc_idx, enc.term_idx, enc.weights, n_docs, enc.n_terms,
+                               SHARDS, device=device)
+    build_s = time.perf_counter() - t0
+    stack = stack_indexes(shards)
+    del shards
+    sync()
+    print(f"sharded: {SHARDS} shards of {dps} docs ({n_docs - (SHARDS - 1) * dps} in the last), "
+          f"{stack.n_blocks} blocks of {stack.block_size} a shard, {stack.doc_ids.shape[1]} "
+          f"postings a shard (padded), Tmax {stack.max_doc_terms}; built in {build_s:.1f} s "
+          f"(host), stacked {stack.nbytes() / 1e9:.3f} GB on {device} in "
+          f"{time.perf_counter() - t0 - build_s:.1f} s; card {card}")
+    return stack, dps
+
+
+def shard_views(stack, dps):
+    """Each shard of the stack as the serve step searches it (views of its
+    rows, with the stack's build constants)."""
+    data = _index_data_dict(stack)
+    meta = dict(block_size=stack.block_size, scale=stack.scale, bits=stack.bits,
+                max_segs=stack.max_segs, max_bm=stack.max_bm)
+    return [_local_index(data, j, dps, meta) for j in range(stack.doc_ids.shape[0])]
+
+
+def sharded_routes(stack, dps, n_docs):
+    """The pod and sharded steps' keywords per route, at exact budgets."""
+    base = dict(k=SERVE_K, max_segs_per_term=stack.max_segs, docs_per_shard=dps,
+                n_docs_total=n_docs)
+    exact = int(stack.doc_ids.shape[1])
+    return {
+        "SAAT fused": dict(base, rho_per_shard=exact, fused_topk=True),
+        "SAAT kernel": dict(base, rho_per_shard=exact, scatter_impl="kernel"),
+        "DAAT fused": dict(base, rho_per_shard=0, engine="daat",
+                           daat_est_blocks=DAAT_KW["est_blocks"],
+                           daat_block_budget=DAAT_KW["block_budget"],
+                           max_bm_per_term=stack.max_bm, daat_use_kernels=True,
+                           daat_fused_chunk=True),
+    }
+
+
+def nccl_world_of_one(stack, bt, bw, kw, want, device) -> str:
+    """The (1, 1) sharded step over an NCCL process group of one rank
+    (rendezvous through a FileStore under build/): equal bit for bit to the
+    in-process step. Returns the backend's name."""
+    store = Path(__file__).resolve().parent / "build" / f"nccl_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=device)
+        serve, in_specs, _ = make_sharded_serve_step(mesh, group=dist.group.WORLD, **kw)
+        s, i = serve(*(rank_block(x, spec, mesh, 0) for x, spec in zip((stack, bt, bw), in_specs)))
+        sync()
+        check(torch.equal(s, want[0]) and torch.equal(i, want[1]),
+              "sharded: the NCCL world-of-one step differs from the in-process (1, 1) step")
+        return dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def pod_front_end(stack, dps, n_docs, qt_np, qw_np, seed, card) -> None:
+    """``PodFrontEnd`` at 2 hosts over the 4-shard stack at the queue
+    phase's settings: Poisson arrivals split between the hosts, each host's
+    queue flushing into the pod step; every request completes once, and
+    each completion equals the pod step called directly on its flush's
+    batch (the other host's rows sentinels) at the flush's rho."""
+    device = stack.device
+    n_terms = stack.n_terms
+    buckets = (8, 16, max(16, qt_np.shape[1]))
+    clock = HybridClock()
+    cfg = ServingConfig(k=SERVE_K, rho_ladder=SERVE_LADDER, batch_size=QUEUE_SHAPES[-1],
+                        fused_topk=True, lq_buckets=buckets)
+    front = PodFrontEnd(make_mesh(POD_LAYOUT, ("pod", "model"), device=device), stack, cfg,
+                        docs_per_shard=dps, n_docs_total=n_docs, clock=clock,
+                        queue_kwargs=dict(batch_shapes=QUEUE_SHAPES, clock=clock,
+                                          safety_ms=QUEUE_SAFETY_MS, degrade_rho=True))
+    t0 = time.perf_counter()
+    warmup_pod(front, qt_np[:8], qw_np[:8], batch_sizes=QUEUE_SHAPES)
+    warm_s = time.perf_counter() - t0
+    for srv in front.servers:
+        srv.reset_stats()
+    rng = np.random.default_rng(seed + 2)
+    arrivals = clock.now() + np.cumsum(rng.exponential(1.0 / QUEUE_QPS, size=POD_REQUESTS))
+    order = rng.integers(0, qt_np.shape[0], size=POD_REQUESTS)
+    requests = [[] for _ in range(front.n_hosts)]  # each host's, by rid
+    comps, i, inf = [], 0, float("inf")
+    t0 = time.perf_counter()
+    while i < POD_REQUESTS or front.pending():
+        dues = [d for d in (q.next_due() for q in front.queues) if d is not None]
+        t_due = min(dues) if dues else inf
+        if i < POD_REQUESTS and arrivals[i] <= t_due:
+            clock.advance_to(arrivals[i])
+            host = i % front.n_hosts
+            req = (qt_np[order[i]], qw_np[order[i]])
+            check(front.submit(host, *req, QUEUE_DEADLINE_MS) == len(requests[host]),
+                  "pod front end: a host's rids are not its arrival order")
+            requests[host].append(req)
+            i += 1
+        else:
+            clock.advance_to(t_due)
+        comps.extend(front.poll())
+    replay_s = time.perf_counter() - t0
+    by = {(h, c.rid): c for h, c in comps}
+    check(len(comps) == POD_REQUESTS and sorted(by) == sorted(
+        (h, r) for h in range(front.n_hosts) for r in range(len(requests[h]))),
+        "pod front end: a request was lost or served twice")
+    flushes = 0
+    for h, (srv, q) in enumerate(zip(front.servers, front.queues)):
+        for f in q.flush_log:
+            bt, bw = flush_batch(f, requests[h], n_terms)
+            B = f.batch_shape
+            gqt, gqw = sentinel_rows(front.n_hosts * B, f.bucket, n_terms)
+            gqt[h * B:(h + 1) * B], gqw[h * B:(h + 1) * B] = bt, bw
+            _, ids = srv.serve_step(f.rho)(stack, gqt, gqw)
+            ids = ids[h * B:(h + 1) * B].cpu().numpy()
+            for j, rid in enumerate(f.rids):
+                check(np.array_equal(by[(h, rid)].doc_ids, ids[j]),
+                      f"pod front end: host {h} request {rid} differs from the pod step at rho "
+                      f"{f.rho}")
+            flushes += 1
+    counters = front.export_counters().as_dict()
+    dispatch = {",".join(f"{k}={v}" for k, v in sorted(smp["labels"].items())): smp["value"]
+                for smp in counters["repro_pod_dispatch_total"]["samples"]}
+    fanin = sorted({smp["value"] for smp in counters["repro_pod_merge_fanin"]["samples"]})
+    waits = summarize_latencies([c.wait_ms for _, c in comps])
+    served = {}
+    for _, c in comps:
+        served[str(c.rho)] = served.get(str(c.rho), 0) + 1
+    print(f"pod front end: {POD_REQUESTS} requests at {QUEUE_QPS:.0f} qps split over "
+          f"{front.n_hosts} hosts, deadline {QUEUE_DEADLINE_MS} ms, buckets {buckets}, shapes "
+          f"{QUEUE_SHAPES}; warm-up {warm_s:.1f} s, replay {replay_s:.2f} s; {flushes} flushes, "
+          f"violations {sum(q.n_violations for q in front.queues)}, degraded "
+          f"{sum(q.n_degraded for q in front.queues)}; served rho (requests) {served}; wait "
+          f"{latency_line(waits)}; every completion equals the pod step at its rho; dispatches "
+          f"{json.dumps(dispatch)}; merge_fanin {fanin}; card {card}")
+
+
+def sharded_timings(stack, dps, n_docs, qt, qw, qrels, rr_1m, card) -> None:
+    """Printed, not checked: the pod step's batch latency per route (median
+    and max of 4 after one warm-up, host clock); each shard's engine time
+    (CUDA events, median of 3 after one warm-up) for SAAT fused at 250k and
+    at exact, and DAAT fused exact with its trips; RR@10 of the pod step at
+    4 x 250k against the unsharded 1M; the merge's time."""
+    bt, bw = qt[:BATCH], qw[:BATCH]
+    pod = make_mesh(POD_LAYOUT, ("pod", "model"), device=stack.device)
+    for name, kw in sharded_routes(stack, dps, n_docs).items():
+        serve, _, _ = make_pod_serve_step(pod, **kw)
+        serve(stack, bt, bw)
+        times = []
+        for _ in range(4):
+            sync()
+            t0 = time.perf_counter()
+            serve(stack, bt, bw)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        print(f"pod step {POD_LAYOUT} {name} k={SERVE_K} exact B={BATCH}: median "
+              f"{np.median(times):.3f} ms, max {max(times):.3f} ms over 4 (host clock); "
+              f"card {card}")
+
+    def per_shard(fn):
+        out = []
+        for view in shard_views(stack, dps):
+            fn(view)
+            ms = []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                res = fn(view)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            out.append((float(np.median(ms)), res))
+        return out
+
+    pools = None
+    for label, rho in (("250k", SHARD_RHO), ("exact", int(stack.doc_ids.shape[1]))):
+        rows = per_shard(lambda v, r=rho: saat_search(v, bt, bw, k=SERVE_K, rho=r,
+                                                      max_segs_per_term=stack.max_segs,
+                                                      fused_topk=True))
+        ms = [r[0] for r in rows]
+        print(f"per-shard SAAT fused rho={label} B={BATCH}: ms {[round(m, 3) for m in ms]}, "
+              f"max/min {max(ms) / min(ms):.3f}; postings "
+              f"{[int(r[1].postings_processed.sum()) for r in rows]}; card {card}")
+        pools = [(r[1].scores, (r[1].doc_ids + j * dps).to(torch.int32))
+                 for j, r in enumerate(rows)]
+    rows = per_shard(lambda v: daat_search_batched(v, bt, bw, k=SERVE_K,
+                                                   max_bm_per_term=stack.max_bm, use_kernels=True,
+                                                   fused_chunk=True, **DAAT_KW))
+    ms = [r[0] for r in rows]
+    print(f"per-shard DAAT fused exact B={BATCH}: ms {[round(m, 3) for m in ms]}, max/min "
+          f"{max(ms) / min(ms):.3f}; trips {[int(r[1].chunks.max()) for r in rows]}; "
+          f"card {card}")
+    ps, pi = [p[0] for p in pools], [p[1] for p in pools]
+    merge_ms = cuda_ms(lambda: canonical_topk_merge(ps, pi, SERVE_K), iters=20)
+    print(f"canonical_topk_merge of {SHARDS} pools [{BATCH}, {SERVE_K}]: {merge_ms:.4f} ms "
+          f"(CUDA events, back to back); card {card}")
+    serve, _, _ = make_pod_serve_step(pod, **dict(sharded_routes(stack, dps, n_docs)["SAAT fused"],
+                                                  rho_per_shard=SHARD_RHO))
+    ids = [serve(stack, qt[lo:lo + BATCH], qw[lo:lo + BATCH])[1].cpu().numpy()
+           for lo in range(0, qt.shape[0], BATCH)]
+    rr = mrr_at_k(np.concatenate(ids), qrels, 10)
+    print(f"RR@10 at {SHARDS} x {SHARD_RHO} (pod step, SAAT fused): {rr:.4f}; unsharded "
+          f"rho=1M: {rr_1m:.4f}; card {card}")
+
+
+def sharded_phase(enc, index, qt, qw, live, results, d_results, qrels, rr_1m, seed, card) -> None:
+    """Doc-sharded serving over the spladev2 shard re-sharded 4 ways:
+
+    1. the in-process pod step at (pod=2, model=2) on the card, B = 64,
+       k = 10, exact: SAAT through B1 (fused) and B2 (kernel scatter), and
+       DAAT fused, each against the unsharded engine's exact batch (ids
+       equal but at checked near-ties, scores within RTOL);
+    2. the sharded step at (1, 1), all 4 shards on one rank: equal bit for
+       bit to check 1;
+    3. the (1, 1) step over an NCCL process group of one rank: equal bit
+       for bit to the in-process step;
+    4. the run's 0.9 tombstone bitmap through ``shard_live_stack``: the
+       live-masked pod step against the unsharded live-masked SAAT batch;
+    5. ``PodFrontEnd`` at 2 hosts (``pod_front_end``).
+
+    The launch counters are set to 0 before check 1 and read after check
+    5; every kernel of the path must have launched. Then the timings."""
+    device = index.device
+    n_docs = index.n_docs
+    stack, dps = shard_stack(enc, n_docs, device, card)
+    bt, bw = qt[:BATCH], qw[:BATCH]
+    routes = sharded_routes(stack, dps, n_docs)
+    want = {
+        "SAAT fused": results[(MAIN_SHAPE[0], SERVE_K, "exact", "fused", 0)][0],
+        "SAAT kernel": results[(MAIN_SHAPE[0], SERVE_K, "exact", "kernel", 0)][0],
+        "DAAT fused": d_results[(MAIN_SHAPE[0], SERVE_K, True, "fused", 0)],
+    }
+    pod = make_mesh(POD_LAYOUT, ("pod", "model"), device=device)
+    one = make_mesh((1, 1), ("data", "model"), device=device)
+    reset_launches()
+    answers, swaps = {}, {}
+    for name, kw in routes.items():
+        s, i = make_pod_serve_step(pod, **kw)[0](stack, bt, bw)
+        swaps[name] = tie_swaps(s, i, want[name].scores, want[name].doc_ids,
+                                f"sharded {name} at {POD_LAYOUT} vs unsharded")
+        s1, i1 = make_sharded_serve_step(one, **kw)[0](stack, bt, bw)
+        check(torch.equal(s1, s) and torch.equal(i1, i),
+              f"sharded {name}: (1, 1) with {SHARDS} shards on one rank differs from {POD_LAYOUT}")
+        answers[name] = (s1, i1)
+    backend = nccl_world_of_one(stack, bt, bw, routes["SAAT fused"], answers["SAAT fused"], device)
+    live_stack = shard_live_stack(live[:n_docs].cpu().numpy(), n_shards=SHARDS,
+                                  docs_per_shard=dps, n_docs_pad=int(stack.doc_n_terms.shape[1]))
+    s, i = make_pod_serve_step(pod, live_masked=True, **routes["SAAT fused"])[0](
+        stack, bt, bw, live_stack=live_stack)
+    plain = saat_search(index, bt, bw, k=SERVE_K, rho=index.n_postings,
+                        max_segs_per_term=max_segments_per_term(index), fused_topk=True,
+                        live_mask=live)
+    swaps["SAAT fused live"] = tie_swaps(s, i, plain.scores, plain.doc_ids,
+                                         f"sharded live-masked at {POD_LAYOUT} vs unsharded")
+    fin = torch.isfinite(s)
+    check(bool((live[i.long()[fin]] != 0).all()), "sharded live-masked: a tombstoned doc came back")
+    pod_front_end(stack, dps, n_docs, qt.cpu().numpy(), qw.cpu().numpy(), seed, card)
+    launches = read_launches()
+    path = ("impact_scatter", "impact_scatter_topk", "block_prune_csr", "block_topk",
+            "sparse_score", "chunk_step")
+    for name in path:
+        check(launches[name] > 0, f"sharded serving: kernel {name} was not launched")
+    print(f"sharded serving: {POD_LAYOUT} pod step (SAAT fused, SAAT kernel, DAAT fused) equal to "
+          f"the unsharded engines but at near-ties (ranks that differ {swaps}); (1, 1) with "
+          f"{SHARDS} shards a rank equal bit for bit; the {backend} world-of-one step equal bit "
+          f"for bit (torch.cuda.device_count() = {torch.cuda.device_count()}); live-masked equal "
+          f"to the unsharded live batch; launches "
+          f"{json.dumps({n: launches[n] for n in path})}; card {card}")
+    sharded_timings(stack, dps, n_docs, qt, qw, qrels, rr_1m, card)
+
+
 def vmap_phase(index, qt, qw) -> None:
     """``saat_search_vmap`` with the kernel scatter (the B=1 wrapper, one
     launch per query) on one batch: ids equal to ``saat_search``'s."""
@@ -2523,7 +2832,7 @@ def run(args, device) -> None:
     scatter_range_edges(device, args.seed)
     daat_errs = daat_contract_phases(device, args.seed)
     phase.end("kernel contracts")
-    corpus, data, raw_weights = make_data(args.n_docs, args.n_queries, args.seed, device)
+    corpus, data, encs = make_data(args.n_docs, args.n_queries, args.seed, device)
     phase.end("corpus and index builds")
     index, qt, qw = data[MAIN_SHAPE[0]]
     rng = np.random.default_rng(args.seed)
@@ -2587,7 +2896,7 @@ def run(args, device) -> None:
 
     # the weight analysis over every query of both shards, and the frontier
     # of this run's operating points
-    wacky_phase(data, raw_weights, SERVE_K)
+    wacky_phase(data, {m: enc.weights for m, enc in encs.items()}, SERVE_K)
     frontier_phase(data, np.asarray(corpus.qrels), rr, latency, d_results, d_latency)
     phase.end("weight analysis")
 
@@ -2606,6 +2915,9 @@ def run(args, device) -> None:
     phase.end("DAAT served")
     churn_phase(index, qt_np, qw_np, args.seed)
     phase.end("churn")
+    sharded_phase(encs[MAIN_SHAPE[0]], index, qt, qw, live, results, d_results, qrels,
+                  rr[f"{MAIN_SHAPE[0]} k={SERVE_K} rho=1000000"], args.seed, card)
+    phase.end("sharded serving")
     vmap_phase(index, qt[:BATCH], qw[:BATCH])
     phase.end("saat_search_vmap")
     launches.update(single_query_phase(index, qt[:BATCH], qw[:BATCH]))

@@ -10,6 +10,7 @@ block-max DAAT and the exhaustive oracle (ports of ``repro.core``).
     daat_search_vmap / blockmax_search    per-query DAAT, the parity oracle
     exhaustive_search                     rank-safe exhaustive disjunction
     IndexHandle, search_delta_pool        mutable lifecycle (delta, tombstones, compaction)
+    canonical_topk_merge                  the cross-rank k-merge (ties to the lowest doc id)
     wacky.*                               weight-wackiness analysers
     OperatingPoint, pareto_frontier       effectiveness/latency frontier
 
@@ -57,7 +58,14 @@ from repro_torch.core.saat import (  # noqa: F401
     saat_search,
     saat_search_vmap,
 )
-from repro_torch.core.topk import merge_pools_by_id, merge_topk, tiled_topk, topk  # noqa: F401
+from repro_torch.core.topk import (  # noqa: F401
+    canonical_topk_merge,
+    merge_pools_by_id,
+    merge_topk,
+    sharded_topk_merge,
+    tiled_topk,
+    topk,
+)
 from repro_torch.core.index_handle import (  # noqa: F401
     HandleResult,
     IndexHandle,

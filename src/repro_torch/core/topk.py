@@ -6,14 +6,19 @@ that order, so every selection here is a stable descending ``torch.sort``
 followed by taking the first k: equal scores keep their input order, which
 puts the lowest index first, ``-inf`` ties included.
 
-``canonical_topk_merge`` and ``sharded_topk_merge`` arrive with multi-GPU
-serving.
+The two collective merges take, in place of the reference's mesh axis
+name, the gather: ``group=None`` for the in-process path, where the pools
+are a sequence of every rank's pool in the mesh's flat rank order, or a
+``torch.distributed`` process group, where the pool is this rank's own.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
+
+Pools = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
 def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,3 +90,72 @@ def merge_pools_by_id(
     i = torch.gather(i, -1, order)
     ms, mi = topk(s, k)
     return ms, torch.gather(i, -1, mi)
+
+
+def gather_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` stacked on a new leading axis, in group rank
+    order: ``[world, *x.shape]`` (``all_gather_into_tensor``)."""
+    x = x.contiguous()
+    out = x.new_empty((dist.get_world_size(group),) + tuple(x.shape))
+    dist.all_gather_into_tensor(out.view((-1,) + tuple(x.shape[1:])), x, group=group)
+    return out
+
+
+def _gather_pools(
+    scores: Pools, ids: Pools, group: Optional[dist.ProcessGroup] = None
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Every rank's pool concatenated along the last axis, rank-major: what
+    the reference's ``all_gather(..., axis=-1, tiled=True)`` returns, and
+    the number of ranks.
+
+    ``group=None``: ``scores`` and ``ids`` are sequences of every rank's
+    ``[..., k]`` pool in rank order (the in-process path). Otherwise they
+    are this rank's pool, gathered over ``group``.
+    """
+    if group is None:
+        return torch.cat(list(scores), dim=-1), torch.cat(list(ids), dim=-1), len(scores)
+
+    def cat(x):
+        g = gather_ranks(x, group)  # [R, ..., k]
+        return torch.movedim(g, 0, -2).reshape(x.shape[:-1] + (-1,))
+
+    return cat(scores), cat(ids), dist.get_world_size(group)
+
+
+def sharded_topk_merge(
+    local_scores: Pools, local_ids: Pools, k: int,
+    group: Optional[dist.ProcessGroup] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed top-k: gather every rank's top-k pool and re-select.
+
+    Ties break by pool position (rank-major), which is not the unsharded
+    engines' tie order once pad sentinels enter the pool: a sentinel
+    ``(-inf, INT32_MAX)`` from an early rank outranks a real ``-inf``
+    document from a later one. Serve paths that promise the unsharded
+    answer use :func:`canonical_topk_merge`.
+    """
+    gs, gi, _ = _gather_pools(local_scores, local_ids, group)
+    ms, mi = topk(gs, k)
+    return ms, torch.gather(gi, -1, mi)
+
+
+def canonical_topk_merge(
+    local_scores: Pools, local_ids: Pools, k: int,
+    group: Optional[dist.ProcessGroup] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed top-k with ties canonicalized to global-doc-id order.
+
+    The gathered candidates are stably reordered by global doc id, then
+    re-selected with :func:`tiled_topk`, one tile per rank. Position order
+    is then id order (within a tile directly, across tiles because each
+    tile is a contiguous id range), and the selects break ties toward the
+    lower position, so tied candidates surface in ascending-id order
+    whatever the number of ranks, and pad sentinels (``INT32_MAX``) fall
+    behind every real ``-inf`` document: the unsharded engines' answer.
+    """
+    gs, gi, n_ranks = _gather_pools(local_scores, local_ids, group)
+    order = torch.sort(gi, dim=-1, stable=True).indices
+    gs = torch.gather(gs, -1, order)
+    gi = torch.gather(gi, -1, order)
+    ms, mi = tiled_topk(gs, k, num_tiles=max(n_ranks, 1))
+    return ms, torch.gather(gi, -1, mi)

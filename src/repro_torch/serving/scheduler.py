@@ -1,12 +1,13 @@
 """Anytime serving: batched queries and deadline -> rho control.
 
-The port of ``repro.serving.scheduler`` (one device; doc sharding across
-devices is not ported yet). SAAT's posting budget rho makes query cost
-predictable; this module turns that into a deadline controller: given a
-target latency, pick the largest rho whose predicted cost fits. The
-controller works on a ladder of rho levels, each served as one batched
-``saat_search`` over the whole ``[B, Lq]`` batch. The server can also run
-block-max DAAT (``engine="daat"``), whose cost is data-dependent.
+The port of ``repro.serving.scheduler`` (one index; doc sharding over a
+mesh of ranks is ``repro_torch.serving.sharded`` and ``pod``). SAAT's
+posting budget rho makes query cost predictable; this module turns that
+into a deadline controller: given a target latency, pick the largest rho
+whose predicted cost fits. The controller works on a ladder of rho levels,
+each served as one batched ``saat_search`` over the whole ``[B, Lq]``
+batch. The server can also run block-max DAAT (``engine="daat"``), whose
+cost is data-dependent.
 
 Two serving-layer properties make the continuous-batching admission queue
 (``repro_torch.serving.queue``) possible:

@@ -10,10 +10,12 @@
   with ``--device cpu``, directly and through the admission queue with the
   counters endpoint, and raises without ``--device cpu`` when there is no
   GPU;
-* every name the reference's ``repro.metrics``, ``repro.kernels`` and
-  ``repro.core`` export, and every function and class of ``repro.core``'s
-  and ``repro.metrics``' modules, the port's counterpart has too, but for
-  the names of modules not yet ported (``NOT_YET_PORTED``); the kernels'
+* every name the reference's ``repro.metrics``, ``repro.kernels``,
+  ``repro.core``, ``repro.serving`` and ``repro.distributed`` export, and
+  every function and class of ``repro.core``'s and ``repro.metrics``'
+  modules and of ``serving/sharded.py``, ``serving/pod.py`` and
+  ``distributed/sharding.py``, the port's counterpart has too, but for the
+  names of modules not yet ported (``NOT_YET_PORTED``); the kernels'
   ``ops`` and ``ref`` modules still import by ``from ... import ops`` after
   the package re-exports the wrappers.
 """
@@ -83,6 +85,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "repro_torch.serving.counters", "repro_torch.serving.scheduler",
         "repro_torch.serving.queue", "repro_torch.serving.lifecycle",
         "repro_torch.launch.serve", "repro_torch.core.wacky", "repro_torch.core.pareto",
+        "repro_torch.serving.sharded", "repro_torch.serving.pod",
+        "repro_torch.distributed", "repro_torch.distributed.sharding",
     }
     assert expected <= set(report["modules"])
 
@@ -280,11 +284,19 @@ def test_serve_cli_raises_without_a_gpu():
     assert "device='cpu'" in out.stderr and out.stdout == ""
 
 
-# Names the reference exports whose modules the port has not ported yet,
-# with their queue item (ROADMAP.md, queue A).
+# Names the reference exports (or defines in a module the defines check
+# reads) whose modules the port has not ported yet, with their queue item
+# (ROADMAP.md, queue A): the rest of ``repro.distributed``.
 NOT_YET_PORTED = {
-    "sharded_topk_merge": "A10",
-    "canonical_topk_merge": "A10",
+    name: "A12" for name in (
+        "collectives", "elastic", "CompressionConfig", "compress_decompress",
+        "compressed_psum", "dequantize_int8", "make_error_feedback_transform",
+        "quantize_int8", "reduce_scatter_grads", "MeshTopology", "best_effort_mesh",
+        "data_parallel_liveness", "reshard_state", "act", "ambient_axis_size",
+        "batch_dim_sharding", "batch_shardings", "cache_shardings", "constraint",
+        "current_axes", "fully_sharded_dim", "normalize_path", "param_shardings",
+        "param_specs", "spec_for_path", "train_state_shardings",
+    )
 }
 KERNEL_PACKAGES = ("block_prune", "block_prune_csr", "block_topk", "chunk_step",
                    "impact_scatter", "impact_scatter_topk", "sparse_score")
@@ -303,7 +315,7 @@ def _init_exports(package: str) -> set:
     return names
 
 
-@pytest.mark.parametrize("package", ["metrics", "kernels", "core"])
+@pytest.mark.parametrize("package", ["metrics", "kernels", "core", "serving", "distributed"])
 def test_port_packages_export_what_the_reference_exports(package):
     port = importlib.import_module(f"repro_torch.{package}")
     want = _init_exports(f"repro.{package}")
@@ -323,7 +335,13 @@ def test_ref_modules_list_every_reference_module():
     assert found == set(REF_MODULES)
 
 
-@pytest.mark.parametrize("module", REF_MODULES)
+# Modules of ``repro.serving`` and ``repro.distributed`` ported so far that
+# the defines check reads too (``distributed.sharding``: ``Axes`` and
+# ``mesh_axes``; its other names are A12's).
+SHARDED_MODULES = ("serving.sharded", "serving.pod", "distributed.sharding")
+
+
+@pytest.mark.parametrize("module", REF_MODULES + SHARDED_MODULES)
 def test_port_modules_define_what_the_reference_defines(module):
     ref = importlib.import_module(f"repro.{module}")
     port = importlib.import_module(f"repro_torch.{module}")
