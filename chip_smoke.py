@@ -35,7 +35,7 @@ It needs one CUDA card and exits non-zero without one. In order:
    of their inputs that the L2 cannot hold) and, at B = 1, the host's
    enqueue time a launch; ``impact_scatter`` at rho = 1M and 100k, B = 64,
    63 and 1, with its layout (slots a range, ranges a CTA) swept at B = 64
-   and 1; ``block_topk`` and
+   and rho = 1M; ``block_topk`` and
    ``chunk_step`` also at their edges (ties, all--inf rows, ragged widths,
    B = 1 and 63, k = 1000, tombstones, rows that leave a multi-trip launch
    at different trips); ``sparse_score``'s store-addressed entry at the
@@ -44,8 +44,9 @@ It needs one CUDA card and exits non-zero without one. In order:
    padding or no terms, duplicate query terms, the live-block gate), with a
    sweep of its docs per CTA and a check that a split batch scores through
    it and makes no [B, N, Tmax] gather; ``impact_scatter_topk``'s select
-   and sort timed against each other at k_blk = 1 to 64; ``block_prune_csr``
-   at B = 64, 63 and 1 of the batch, and its tiles swept at B = 64 and 1;
+   and sort timed against each other at k_blk = 10, 32 and 64;
+   ``block_prune_csr`` at B = 64, 63 and 1 of the batch, and its tiles swept
+   at B = 64;
 5. the SAAT path: after one warm-up batch per configuration, serves the
    256 queries in batches of 64 through ``saat_search`` with the fused
    kernel and with the scatter kernel, at k=10 for rho in {100k, 1M,
@@ -65,7 +66,19 @@ It needs one CUDA card and exits non-zero without one. In order:
    ``block_prune_csr`` launch a shard) equal bit for bit to
    ``block_upper_bounds``; then ``frontier_table`` (``core/pareto.py``) of
    the SAAT rho levels and DAAT modes measured above;
-8. the dense ``block_prune`` on its oracle path: at the reference's
+8. the trainable encoder (``encoder_phase``), in f32 with TF32 off: at
+   ``tests/test_e2e.py``'s size, both heads on the card against the CPU from
+   the same params and batches (the encoding, with each side's distance
+   from an f64 run on the host, step 0's loss and gradients, 5 steps'
+   losses); at DistilBERT's widths on the shard corpus's 48,064
+   terms, 2 warm-up and 20 timed steps (ms a step, triples/s, model FLOPs
+   and their share of the f32 peak, peak memory, the loss), 2,048 docs
+   encoded to postings, and a checkpoint of the train state written and
+   restored bit for bit; then ``launch/train_encoder.py``'s ``main`` at the
+   example's settings (train, encode, index, SAAT against BM25) and its
+   learned index's queries through ``impact_scatter_topk`` and
+   ``impact_scatter`` against the plain sort mode;
+9. the dense ``block_prune`` on its oracle path: at the reference's
    contract shapes and its edges (the engine's widths at B = 63 and 1, an
    Lq of several rounds of loads, one block) against its plain version at
    every tile, then on one 64-query
@@ -73,7 +86,7 @@ It needs one CUDA card and exits non-zero without one. In order:
    the batch's DAAT k-th scores, ub equal bit for bit to ``block_prune_csr``
    and to the plain version; timed beside the plain version and
    ``torch.bmm``, hot and cold, with its tile swept at B = 64 and 1;
-9. serving on the ``spladev2`` shard: ``AnytimeServer`` directly (SAAT,
+10. serving on the ``spladev2`` shard: ``AnytimeServer`` directly (SAAT,
    fused kernel, the CLI's rho ladder, a deadline under the top level's
    calibrated cost, every batch equal to ``saat_search`` at the rho served,
    the ``--eval-qrels`` sweep); through the admission queue on a
@@ -83,7 +96,7 @@ It needs one CUDA card and exits non-zero without one. In order:
    ``IndexHandle`` under ``replay_with_churn`` with one compaction (answers
    equal across it, every merged id live and rescored); and
    ``saat_search_vmap`` with the kernel scatter;
-10. doc-sharded serving: the ``spladev2`` corpus re-sharded 4 ways with
+11. doc-sharded serving: the ``spladev2`` corpus re-sharded 4 ways with
    ``shard_corpus`` and stacked on the card; the pod step at (pod = 2,
    model = 2) and the sharded step at (1, 1) with all 4 shards on one
    rank, SAAT through both scatter kernels and DAAT fused, against the
@@ -94,7 +107,7 @@ It needs one CUDA card and exits non-zero without one. In order:
    its rho; then, printed, the pod step's latency, each shard's engine time
    (SAAT at 250k and exact, DAAT with its trips), RR@10 at 4 x 250k and
    the merge's time;
-11. the single-query wrappers (B = 1) of the scatter, fused top-k, block
+12. the single-query wrappers (B = 1) of the scatter, fused top-k, block
    top-k and scoring kernels, each called once on a query of the batch.
 
 Each path runs with the launch counters set to 0 just before and read just
@@ -107,11 +120,14 @@ Any mismatch raises, so the run exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import namedtuple
 from datetime import timedelta
@@ -123,6 +139,8 @@ import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.archs.transformer import train_step_model_flops  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     DaatResult,
     OperatingPoint,
@@ -148,6 +166,7 @@ from repro_torch.core.daat import _dense_blockmax_rows, _mask_dead_blocks  # noq
 from repro_torch.core.index_handle import IndexHandle  # noqa: E402
 from repro_torch.core.saat import _gather_postings_batched, saat_search_vmap  # noqa: E402
 from repro_torch.core.topk import canonical_topk_merge, topk  # noqa: E402
+from repro_torch.data.pipeline import TripleSampler  # noqa: E402
 from repro_torch.data.synthetic import CorpusConfig, generate_corpus  # noqa: E402
 from repro_torch.distributed import make_mesh  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
@@ -165,6 +184,7 @@ from repro_torch.kernels.impact_scatter_topk import ops as fused_ops  # noqa: E4
 from repro_torch.kernels.impact_scatter_topk import ref as fused_ref  # noqa: E402
 from repro_torch.kernels.sparse_score import ops as score_ops  # noqa: E402
 from repro_torch.kernels.sparse_score import ref as score_ref  # noqa: E402
+from repro_torch.launch import train_encoder  # noqa: E402
 from repro_torch.launch.serve import _mutation_schedule  # noqa: E402
 from repro_torch.metrics.ir_metrics import (  # noqa: E402
     cheapest_rho_within_loss,
@@ -172,6 +192,14 @@ from repro_torch.metrics.ir_metrics import (  # noqa: E402
     rho_effectiveness_sweep,
 )
 from repro_torch.metrics.latency import HybridClock, SimulatedClock, summarize_latencies  # noqa: E402
+from repro_torch.models.sparse_encoder import (  # noqa: E402
+    SparseEncoderConfig,
+    encode,
+    encode_corpus_to_coo,
+    encoder_backbone,
+    encoder_loss,
+    init_encoder_params,
+)
 from repro_torch.models.treatments import apply_treatment  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AdmissionQueue,
@@ -195,6 +223,14 @@ from repro_torch.serving import (  # noqa: E402
     warmup_pod,
 )
 from repro_torch.serving.sharded import _index_data_dict, _local_index  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    AdamWConfig,
+    abstract_train_state,
+    init_train_state,
+    make_train_step,
+    train_loop,
+)
+from repro_torch.train.tree import flatten_with_paths  # noqa: E402
 
 # MS MARCO passage v1 holds 8,841,823 passages; one shard of 32.
 N_DOCS = 276_307
@@ -207,6 +243,9 @@ RTOL, ATOL = 1e-5, 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 L2_BYTES = 50e6  # H100 L2 cache: cold timings rotate over copies of twice this
 SCATTER_RHOS = (1_000_000, 100_000)  # B2's main shapes, beside B = 64 and 1
+# B1's block top-k by the select and by the sort, swept at B = 64: either side
+# of the rule's switch (the edge phases hold k_blk 1 and 16 bit for bit)
+SELECT_SWEEP_KS = (10, 32, 64)
 
 # The reference kernels' CONTRACT.shape_grid (src/repro/kernels/*/ops.py),
 # copied: this script imports nothing of the JAX package.
@@ -497,17 +536,18 @@ def timings(kernel, plain, library=None, plain_iters: int = 10) -> dict:
     )
 
 
-def max_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
-    """Scores agree within RTOL/ATOL (-inf where and only where the plain
+def max_err(got: torch.Tensor, want: torch.Tensor, what: str, rtol: float = RTOL,
+            atol: float = ATOL) -> float:
+    """Scores agree within rtol/atol (-inf where and only where the plain
     version has -inf). Returns the largest absolute difference."""
-    got, want = got.float().cpu(), want.float().cpu()
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
     check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     fin = torch.isfinite(want)
     check(bool((torch.isfinite(got) == fin).all()), f"{what}: -inf pattern differs")
     if not bool(fin.any()):
         return 0.0
     diff = (got[fin] - want[fin]).abs()
-    bad = diff > ATOL + RTOL * want[fin].abs()
+    bad = diff > atol + rtol * want[fin].abs()
     check(not bool(bad.any()), f"{what}: {int(bad.sum())} scores off, max diff {float(diff.max())}")
     return float(diff.max())
 
@@ -828,7 +868,7 @@ def select_sweep(docs, c, n_docs_pad, n_live, block_d) -> None:
     k_blk, replayed from a CUDA graph; both equal."""
     rule = fused_ops.use_select
     try:
-        for k in (1, 10, 16, 32, 64):
+        for k in SELECT_SWEEP_KS:
             times, outs = {}, {}
             for route in ("select", "sort"):
                 fused_ops.use_select = lambda k_blk, route=route: route == "select"
@@ -877,7 +917,8 @@ def main_shape_phases(index, qt, qw, live) -> dict:
     plan = saat_plan(index, qt, qw, ms)
     rows = {"impact_scatter": [], "impact_scatter_topk": []}
     # B2 at rho = 1M and 100k, B = 64 and 1 (the kernels line reports the
-    # first row of each of B = 64 and 1); B = 63 untimed; its range swept
+    # first row of each of B = 64 and 1); B = 63 untimed; its range swept at
+    # B = 64 and 1M only, for the run's time budget
     for rho in SCATTER_RHOS:
         d, v, _ = _gather_postings_batched(index, plan, rho)
         tag = f"rho={rho // 1000}k" if rho < 1_000_000 else "rho=1M"
@@ -888,11 +929,12 @@ def main_shape_phases(index, qt, qw, live) -> dict:
             d[:1], v[:1], n_docs_pad, 512, 512, single=True, timed=True, what=f"main B=1 {tag}"))
         scatter_phase(d[:63], v[:63], n_docs_pad, 512, 512, single=False, timed=False,
                       what=f"main B=63 {tag}")
-        pad = common.round_up(index.n_docs, 512)
-        sd, sc = common.sorted_posting_tiles(d, v, pad, 512)
-        range_sweep(sd, sc, pad, f"B={B} {tag}")
-        range_sweep(sd[:1].contiguous(), sc[:1].contiguous(), pad, f"B=1 {tag}")
-        del d, v, sd, sc
+        if rho == 1_000_000:
+            pad = common.round_up(index.n_docs, 512)
+            sd, sc = common.sorted_posting_tiles(d, v, pad, 512)
+            range_sweep(sd, sc, pad, f"B={B} {tag}")
+            del sd, sc
+        del d, v
     docs, contribs, _ = _gather_postings_batched(index, plan, 1_000_000)
     B = docs.shape[0]
     for k in (10, 1000):
@@ -1044,19 +1086,18 @@ def verify(data, results, qrels) -> dict:
     return rr
 
 
-def profile_batch(index, bt, bw, k, rho) -> None:
-    """One fused batch under ``torch.profiler``: device time by kernel and
-    by the PyTorch operator that launched it, and the device's busy share
-    of the batch's (profiled) wall time."""
+def profile_call(label, fn) -> None:
+    """``fn()`` once under ``torch.profiler`` (after one call outside it):
+    device time by kernel and by the PyTorch operator that launched it, and
+    the device's busy share of the call's (profiled) wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ms = max_segments_per_term(index)
-    saat_search(index, bt, bw, k=k, rho=rho, max_segs_per_term=ms, fused_topk=True)
+    fn()
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        saat_search(index, bt, bw, k=k, rho=rho, max_segs_per_term=ms, fused_topk=True)
+        fn()
         sync()
         wall_us = 1e6 * (time.perf_counter() - t0)
     avgs = prof.key_averages()
@@ -1065,23 +1106,30 @@ def profile_batch(index, bt, bw, k, rho) -> None:
     ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
                  key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"profile spladev2 k={k} rho={rho} fused B={bt.shape[0]}: profiled wall "
-          f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-          f"({100 * busy_us / wall_us:.1f}%)")
+    print(f"profile {label}: profiled wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%)")
     for what, events in (("operator", ops), ("kernel", kernels)):
         for e in events[:8]:
             print(f"  {what} {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:80]}")
 
 
+def profile_batch(index, bt, bw, k, rho) -> None:
+    """One fused SAAT batch under ``torch.profiler``."""
+    ms = max_segments_per_term(index)
+    profile_call(f"spladev2 k={k} rho={rho} fused B={bt.shape[0]}",
+                 lambda: saat_search(index, bt, bw, k=k, rho=rho, max_segs_per_term=ms,
+                                     fused_topk=True))
+
+
 # ---------------------------------------------------------------------------
 # DAAT kernel phases: block_prune_csr (B3), block_topk (B6), sparse_score
 # (B7), chunk_step (B4) and chunk_step_multi (B5) against their plain
-# versions, run on a host copy of the inputs.
+# versions, run on a host copy of the inputs; at the main shapes B4's and
+# B5's plain trips run on the card (on the host each trip scores the whole
+# budget's rows in about 3 s, and the edges take dozens of trips). Their
+# scores are held within RTOL and their ids but at near-ties, so the sum's
+# order does not matter there.
 # ---------------------------------------------------------------------------
-
-
-def host(t):
-    return None if t is None else t.cpu()
 
 
 def prune_inputs(dims: dict, seed: int, device):
@@ -1542,12 +1590,12 @@ def chunk_phase(index, qt, qw_raw, state, budget, live, trips, timed, what,
     ub, processed, pool_s, pool_i, theta = state
     kw = dict(block_budget=budget, block_size=index.block_size, n_live=index.n_docs)
     args = (index.doc_terms, index.doc_weights, qt, qw_raw, ub, processed, pool_s, pool_i, theta)
-    hargs = tuple(a.cpu() for a in args)
     B = ub.shape[0]
     if trips is None:
         got = chunk_ops.chunk_step_batched(*args, live=live, **kw)
-        want = chunk_ref.chunk_step_batched_ref(*hargs, live=host(live), **kw)
-        got, want = got + (torch.ones(B, dtype=torch.int32),), want + (torch.ones(B, dtype=torch.int32),)
+        want = chunk_ref.chunk_step_batched_ref(*args, live=live, **kw)
+        one_trip = torch.ones(B, dtype=torch.int32, device=ub.device)
+        got, want = got + (one_trip,), want + (one_trip,)
         trips_left = None
     else:
         # as the engine: every row that can still move gets the whole budget
@@ -1556,10 +1604,10 @@ def chunk_phase(index, qt, qw_raw, state, budget, live, trips, timed, what,
         trips_left = torch.where(active, budgets, 0).to(torch.int32)
         got = chunk_ops.chunk_step_multi_batched(*args, trips_left, trips_per_launch=trips,
                                                  live=live, **kw)
-        want = chunk_ref.chunk_step_multi_batched_ref(*hargs, trips_left.cpu(),
-                                                      trips_per_launch=trips, live=host(live), **kw)
+        want = chunk_ref.chunk_step_multi_batched_ref(*args, trips_left, trips_per_launch=trips,
+                                                      live=live, **kw)
     sync()
-    got = tuple(t.cpu() for t in got)
+    got, want = tuple(t.cpu() for t in got), tuple(t.cpu() for t in want)
     gs, gi, gth, gpr, gtd = got
     ws, wi, wth, wpr, wtd = want
     ok = ((gpr == wpr).all(dim=-1) & (gtd == wtd) & close_rows(gs, ws)
@@ -1567,13 +1615,12 @@ def chunk_phase(index, qt, qw_raw, state, budget, live, trips, timed, what,
     bad = ~ok
     if bool(bad.any()):
         # the plain trip sequence's thetas, one trip at a time
-        thetas, st = [theta, wth, gth], hargs[4:]
+        thetas, st = [theta, wth, gth], args[4:]
         for t in range(1 if trips is None else trips):
-            ns, ni, nth, npr = chunk_ref.chunk_step_batched_ref(*hargs[:4], *st, live=host(live),
-                                                                **kw)
+            ns, ni, nth, npr = chunk_ref.chunk_step_batched_ref(*args[:4], *st, live=live, **kw)
             thetas.append(nth)
             st = (st[0], npr, ns, ni, nth)
-        tied = near_tie_rows(hargs[4], thetas)
+        tied = near_tie_rows(ub, thetas)
         check(not bool((bad & ~tied).any()),
               f"{what}: rows {torch.nonzero(bad & ~tied).flatten().tolist()} differ from the "
               f"plain version with no block bound near-tied with theta")
@@ -1587,7 +1634,7 @@ def chunk_phase(index, qt, qw_raw, state, budget, live, trips, timed, what,
         # trips scored (4 B per term id, a weight only where the term
         # matches; the kernel reads no other block), the live bit of every
         # doc of those blocks, the ub and processed rows, the pool
-        new = (wpr & ~hargs[5]).to(ub.device)
+        new = wpr.to(ub.device) & ~processed
         blocks = int(new.sum())
         bs, tmax = index.block_size, index.doc_terms.shape[1]
         nb, k = ub.shape[1], pool_s.shape[1]
@@ -1716,9 +1763,7 @@ def daat_main_shape_phases(index, qt, qw, live) -> dict:
         rows["block_prune_csr"].append(prune_phase(
             prune_args[:2] + tuple(a[:b].contiguous() for a in prune_args[2:]), index.n_blocks,
             timed, f"main B={b}"))
-    for b in (B, 1):
-        prune_tile_sweep(prune_args[:2] + tuple(a[:b].contiguous() for a in prune_args[2:]),
-                         index.n_blocks, f"B={b}")
+    prune_tile_sweep(prune_args, index.n_blocks, f"B={B}")
     ub = block_upper_bounds(index, qt, qw, mb)
     for n in (budget, est):
         rows["block_topk"].append(btopk_phase(ub, n, 8192, False, True, f"main B={B} k={n}"))
@@ -1969,30 +2014,11 @@ def daat_stats(data, results) -> None:
 
 def profile_daat_batch(index, bt, bw, k) -> None:
     """One fused DAAT batch (exact) under ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     kw = dict(k=k, exact=True, max_bm_per_term=max_blocks_per_term(index), use_kernels=True,
               fused_chunk=True, **DAAT_KW)
-    daat_search_batched(index, bt, bw, **kw)
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = daat_search_batched(index, bt, bw, **kw)
-        sync()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    avgs = prof.key_averages()
-    kernels = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
-                 key=lambda e: e.self_device_time_total, reverse=True)
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"profile DAAT spladev2 k={k} exact fused B={bt.shape[0]} ({int(res.chunks.max())} "
-          f"trips): profiled wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-          f"({100 * busy_us / wall_us:.1f}%)")
-    for what, events in (("operator", ops), ("kernel", kernels)):
-        for e in events[:8]:
-            print(f"  {what} {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:80]}")
+    trips = int(daat_search_batched(index, bt, bw, **kw).chunks.max())
+    profile_call(f"DAAT spladev2 k={k} exact fused B={bt.shape[0]} ({trips} trips)",
+                 lambda: daat_search_batched(index, bt, bw, **kw))
 
 
 # ---------------------------------------------------------------------------
@@ -2799,6 +2825,241 @@ def single_query_phase(index, qt, qw) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the trainable encoder (queue A11): parity with the CPU, training at full
+# width, and the example's loop from training to SAAT
+# ---------------------------------------------------------------------------
+
+# test_e2e.py's encoder size and corpus, trained on both devices
+ENC_PARITY = dict(d_model=64, n_layers=2, steps=5, batch=16, q_len=8, d_len=32,
+                  corpus=dict(n_docs=300, n_queries=60, n_concepts=40, seed=1))
+# the card against the CPU, both f32 (TF32 off): a few ulps apart a product,
+# so the encoding, step 0's loss and its gradients tightly; AdamW moves
+# every weight with a nonzero gradient by about lr at first, whatever the
+# gradient's size, so the later losses within ENC_LOSS_RTOL
+ENC_REP_RTOL, ENC_REP_ATOL = 1e-4, 1e-5
+ENC_LOSS0_RTOL = 1e-5
+ENC_GRAD_RTOL, ENC_GRAD_ATOL_FRAC = 1e-3, 1e-4  # atol: a share of the leaf's largest gradient
+ENC_LOSS_RTOL = 1e-3
+# DistilBERT's widths (distilbert-base-uncased, the encoder SPLADEv2 is
+# fine-tuned from): 6 layers, d_model 768, 12 heads of 64, d_ff 3072; the
+# vocabulary is the corpus's surface terms
+ENC_FULL = dict(d_model=768, n_layers=6, batch=32, q_len=16, d_len=64, warmup=2, timed=20,
+                encode_docs=2048, encode_batch=64)
+ENC_FLOPS_WEIGHT = 3e-4  # the example's
+ENC_ADAMW = dict(lr=2e-3, warmup_steps=20, total_steps=300)  # the example's
+F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
+
+
+def encoder_cfg(d_model, n_layers, vocab, head="splade"):
+    return SparseEncoderConfig(encoder_backbone(d_model=d_model, n_layers=n_layers, vocab=vocab),
+                               head=head, flops_weight=ENC_FLOPS_WEIGHT,
+                               query_flops_weight=3 * ENC_FLOPS_WEIGHT)
+
+
+def encoder_parity(device) -> None:
+    """Both heads at test_e2e.py's size: the same initial params and the same
+    ``TripleSampler`` batches on the card and on the CPU; the encoding, step
+    0's loss and gradients, and the loss of each of 5 ``train_loop`` steps."""
+    p = ENC_PARITY
+    corpus = generate_corpus(CorpusConfig(**p["corpus"]))
+    for head in ("splade", "unicoil"):
+        cfg = encoder_cfg(p["d_model"], p["n_layers"], corpus.config.n_surface_terms, head)
+        cpu = init_encoder_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        card = copy.deepcopy(cpu).to(device)
+        init64 = copy.deepcopy(cpu).double()  # train_loop updates ``cpu`` in place
+        runs = {}
+        for dev, model in (("cpu", cpu), ("card", card)):
+            sampler = TripleSampler(corpus, q_len=p["q_len"], d_len=p["d_len"],
+                                    device="cpu" if dev == "cpu" else device)
+            batches = list(itertools.islice(sampler.batches(p["batch"]), p["steps"]))
+            with torch.no_grad():
+                rep = encode(model, batches[0]["pos"], batches[0]["pos_mask"], cfg)
+            loss, _ = encoder_loss(model, batches[0], cfg)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            step = make_train_step(lambda m, b: encoder_loss(m, b, cfg), AdamWConfig(**ENC_ADAMW))
+            _, hist = train_loop(step, init_train_state(model), batches)
+            runs[dev] = rep, loss.detach(), grads, [h["loss"] for h in hist]
+        (rep_c, loss_c, g_c, l_c), (rep_g, loss_g, g_g, l_g) = runs["cpu"], runs["card"]
+        # each side's distance from an f64 run on the host: which one moved
+        cfg64 = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone,
+                                                                      dtype=torch.float64))
+        with torch.no_grad():
+            rep64 = encode(init64, batches[0]["pos"].cpu(),
+                           batches[0]["pos_mask"].cpu(), cfg64).double()
+        off64 = {dev: float((r.detach().cpu().double() - rep64).abs().max())
+                 for dev, r in (("card", rep_g), ("cpu", rep_c))}
+        print(f"encoder parity {head}: encode's max distance from f64 on the host, card "
+              f"{off64['card']:.3g}, CPU {off64['cpu']:.3g}")
+        err = max_err(rep_g, rep_c, f"encoder {head}: encode", ENC_REP_RTOL, ENC_REP_ATOL)
+        max_err(loss_g, loss_c, f"encoder {head}: step 0 loss", ENC_LOSS0_RTOL, 0.0)
+        for (name, _), a, b in zip(cpu.named_parameters(), g_g, g_c):
+            max_err(a, b, f"encoder {head}: step 0 gradient of {name}", ENC_GRAD_RTOL,
+                    ENC_GRAD_ATOL_FRAC * float(b.abs().max()))
+        max_err(torch.tensor(l_g), torch.tensor(l_c), f"encoder {head}: losses", ENC_LOSS_RTOL,
+                0.0)
+        print(f"encoder parity {head}: card vs CPU, encode max diff {err:.3g} (rtol "
+              f"{ENC_REP_RTOL}, atol {ENC_REP_ATOL}); step 0 loss {float(loss_g):.7f} vs "
+              f"{float(loss_c):.7f} (rtol {ENC_LOSS0_RTOL}); gradients within rtol "
+              f"{ENC_GRAD_RTOL}, atol {ENC_GRAD_ATOL_FRAC} x max; losses of {p['steps']} steps "
+              f"{[round(x, 6) for x in l_g]} vs {[round(x, 6) for x in l_c]} "
+              f"(rtol {ENC_LOSS_RTOL})")
+
+
+def encoder_full_width(corpus, device) -> None:
+    """DistilBERT's widths on the shard corpus's vocabulary: warm-up and
+    timed steps (synchronized host clock), model FLOPs, peak memory; the
+    first docs encoded to postings; a checkpoint of the whole train state
+    written, waited on and restored, equal bit for bit."""
+    f = ENC_FULL
+    vocab = corpus.config.n_surface_terms
+    cfg = encoder_cfg(f["d_model"], f["n_layers"], vocab)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_encoder_params(torch.Generator().manual_seed(0), cfg, device=device)
+    n_params = sum(x.numel() for x in model.parameters())
+    check(n_params == cfg.backbone.n_params(), "encoder params differ from LMConfig.n_params")
+    sampler = TripleSampler(corpus, q_len=f["q_len"], d_len=f["d_len"], device=device)
+    batches = list(itertools.islice(sampler.batches(f["batch"]), f["warmup"] + f["timed"]))
+    step = make_train_step(lambda m, b: encoder_loss(m, b, cfg), AdamWConfig(**ENC_ADAMW))
+    state = init_train_state(model)
+    losses, ms = [], []
+    for i, batch in enumerate(batches):
+        sync()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        loss = float(met["loss"])  # reads the loss: the step has ended
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        check(np.isfinite(loss), f"encoder at full width: step {i} loss {loss} is not finite")
+    check(all(bool(torch.isfinite(x).all()) for x in model.parameters()),
+          "encoder at full width: a weight is not finite")
+    timed = ms[f["warmup"]:]
+    flops = (train_step_model_flops(cfg.backbone, f["batch"], f["q_len"])
+             + 2 * train_step_model_flops(cfg.backbone, f["batch"], f["d_len"]))
+    med = float(np.median(timed))
+    print(f"encoder full width: {n_params:,} params (d_model {f['d_model']}, {f['n_layers']} "
+          f"layers, {cfg.backbone.n_heads} heads of {cfg.backbone.d_head}, d_ff "
+          f"{cfg.backbone.d_ff}, vocab {vocab}), f32, TF32 "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}, remat "
+          f"{cfg.backbone.remat}; batch {f['batch']} triples, q_len {f['q_len']}, d_len "
+          f"{f['d_len']}")
+    print(f"encoder full width: {f['timed']} timed steps after {f['warmup']}: median {med:.2f} ms, "
+          f"max {max(timed):.2f} ms a step (host clock, synchronized); "
+          f"{1e3 * f['batch'] / med:.1f} triples/s; model FLOPs a step {flops:.4g} "
+          f"(train_step_model_flops over the query and both doc sides; remat's recompute not "
+          f"counted) = {flops / (med / 1e3) / 1e12:.2f} TFLOP/s, "
+          f"{100 * flops / (med / 1e3) / F32_PEAK:.1f}% of the f32 peak {F32_PEAK / 1e12:.0f} "
+          f"TFLOP/s; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    holder = [state]
+
+    def one_step():
+        holder[0], met = step(holder[0], batches[-1])
+        float(met["loss"])
+
+    profile_call("encoder full width: one train step", one_step)
+    state = holder[0]
+
+    docs = list(itertools.islice(sampler.doc_token_batches(f["encode_batch"]),
+                                 f["encode_docs"] // f["encode_batch"]))
+    sync()
+    t0 = time.perf_counter()
+    d, t, w, n = encode_corpus_to_coo(state.params, [x[0] for x in docs], [x[1] for x in docs],
+                                      cfg)
+    dt = time.perf_counter() - t0
+    check(n == f["encode_docs"] and np.isfinite(w).all() and (w > 1e-4).all()
+          and d.dtype == np.int64 and w.dtype == np.float64,
+          "encoder full width: encode_corpus_to_coo's output")
+    print(f"encoder full width: encode_corpus_to_coo over {n} docs in batches of "
+          f"{f['encode_batch']}: {dt:.2f} s, {n / dt:.0f} docs/s (host clock, to host arrays); "
+          f"{len(d) / n:.1f} nonzeros a doc")
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        cm = CheckpointManager(root, keep=1)
+        t0 = time.perf_counter()
+        cm.save(int(state.step), state, {"phase": "encoder"})
+        t_snap = time.perf_counter() - t0
+        cm.wait()
+        t_save = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(dp, fn)) for dp, _, fns in os.walk(root)
+                     for fn in fns)
+        t0 = time.perf_counter()
+        restored, meta = cm.restore(abstract_train_state(init_encoder_params(None, cfg, "meta")),
+                                    device=device)
+        sync()
+        t_restore = time.perf_counter() - t0
+    saved, back = state.to_tree(), restored.to_tree()
+    flat_s, flat_r = flatten_with_paths(saved)[0], flatten_with_paths(back)[0]
+    check([k for k, _ in flat_s] == [k for k, _ in flat_r] and meta == {"phase": "encoder"}
+          and all(a.dtype == b.dtype and torch.equal(a, b)
+                  for (_, a), (_, b) in zip(flat_s, flat_r)),
+          "encoder full width: the restored train state differs from the saved one")
+    print(f"encoder full width: checkpoint of the train state ({len(flat_s)} leaves, "
+          f"{nbytes / 1e9:.3f} GB on disk): save {t_snap:.2f} s to host, {t_save:.2f} s written "
+          f"(async writer, waited), restore {t_restore:.2f} s to the card; equal bit for bit")
+    del state, restored, model
+
+
+def encoder_loop(device) -> None:
+    """``launch/train_encoder.py``'s ``main`` at the example's settings, then
+    its learned index's queries through SAAT's B1 (fused) and B2 (kernel)
+    routes against the plain sort mode, with the counters set to 0 just
+    before and read just after."""
+    t0 = time.perf_counter()
+    report = train_encoder.main(["--device", str(device)])
+    t_main = time.perf_counter() - t0
+    hist = report["history"]
+    check(all(np.isfinite(h["loss"]) for h in hist), "encoder loop: a loss is not finite")
+    check(all(bool(torch.isfinite(x).all()) for x in report["state"].params.parameters()),
+          "encoder loop: a weight is not finite")
+    index, qt, qw = report["index"], report["q_terms"], report["q_weights"]
+    ms = max_segments_per_term(index)
+    rho = int(saat_plan(index, qt, qw, ms).total_postings.max())
+    swaps = 0
+    for lo in range(0, qt.shape[0], BATCH):
+        bt, bw = qt[lo:lo + BATCH], qw[lo:lo + BATCH]
+        plain = saat_search(index, bt, bw, k=SERVE_K, rho=rho, max_segs_per_term=ms,
+                            scatter_impl="sort")
+        sync()
+        reset_launches()
+        routes = {route: saat_search(index, bt, bw, k=SERVE_K, rho=rho, max_segs_per_term=ms,
+                                     **kw)
+                  for route, kw in (("fused", dict(fused_topk=True)),
+                                    ("kernel", dict(scatter_impl="kernel")))}
+        sync()
+        launches = read_launches()
+        check(launches["impact_scatter_topk"] == 1 and launches["impact_scatter"] == 1,
+              f"encoder loop: B1 and B2 not each launched once a batch: {launches}")
+        for route, res in routes.items():
+            what = f"encoder loop {route} batch@{lo}"
+            check(torch.equal(res.postings_processed, plain.postings_processed),
+                  f"{what}: posting counts differ from the sort mode")
+            swaps += tie_swaps(res.scores, res.doc_ids, plain.scores, plain.doc_ids,
+                               f"{what} vs sort")
+    print(f"encoder loop: main {t_main:.1f} s; {len(hist)} steps, loss "
+          f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; "
+          f"RR@10 trained {report['rr_learned']:.4f}, bm25 {report['rr_bm25']:.4f}; postings "
+          f"learned {report['index'].n_postings:,}, bm25 {report['bm25_index'].n_postings:,}; "
+          f"Lq {qt.shape[1]}; {qt.shape[0]} queries through B1 and B2 at exact rho {rho:,}: "
+          f"equal to the sort mode, {swaps} ranks differ in id between near-tied scores; "
+          f"impact_scatter_topk and impact_scatter each launched "
+          f"{-(-qt.shape[0] // BATCH)} times")
+
+
+def encoder_phase(corpus, device) -> None:
+    t0 = time.perf_counter()
+    encoder_parity(device)
+    t1 = time.perf_counter()
+    encoder_full_width(corpus, device)
+    t2 = time.perf_counter()
+    encoder_loop(device)
+    print(f"encoder phase: parity {t1 - t0:.1f} s, full width {t2 - t1:.1f} s, loop "
+          f"{time.perf_counter() - t2:.1f} s")
+
+
+
 class PhaseClock:
     """Seconds of each phase, printed as each ends."""
 
@@ -2818,6 +3079,11 @@ def run(args, device) -> None:
     phase = PhaseClock()
     card = gpu_name_and_limit()
     print(card)
+    cpus = [line.split(":", 1)[1].strip() for line in open("/proc/cpuinfo")
+            if line.startswith("model name")]
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"f32 matmul TF32 {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}; host "
+          f"{cpus[0] if cpus else 'unknown'} x {len(cpus)}, torch threads {torch.get_num_threads()}")
     t0 = time.perf_counter()
     logs = common.build_kernels()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
@@ -2899,6 +3165,11 @@ def run(args, device) -> None:
     wacky_phase(data, {m: enc.weights for m, enc in encs.items()}, SERVE_K)
     frontier_phase(data, np.asarray(corpus.qrels), rr, latency, d_results, d_latency)
     phase.end("weight analysis")
+    # the trainable encoder keeps its own peak; the paths' peak resumes after
+    paths_peak = torch.cuda.max_memory_allocated()
+    encoder_phase(corpus, device)
+    torch.cuda.reset_peak_memory_stats()
+    phase.end("encoder")
 
     # the dense prune's oracle path, then serving on the spladev2 shard
     dense_rows, dense_launches = dense_prune_phase(index, qt[:BATCH], qw[:BATCH], device, args.seed)
@@ -2924,7 +3195,8 @@ def run(args, device) -> None:
     for name, batched in SINGLE_KERNELS.items():
         rows[name] = [r for r in rows[batched] if r["what"].startswith("main B=1")]
     phase.end("single-query wrappers")
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    peak = max(paths_peak, torch.cuda.max_memory_allocated())
+    print(f"peak device memory (the serving paths; the encoder phase apart): {peak / 1e9:.2f} GB")
 
     errs = {
         "impact_scatter": max([err_s] + [r["max_abs_err"] for r in rows["impact_scatter"]]),

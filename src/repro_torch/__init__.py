@@ -2,15 +2,22 @@
 
 Mirrors the layout of the JAX package, which stays the reference:
 
-    repro_torch.data      synthetic vocabulary-mismatch corpus (numpy)
-    repro_torch.models    BM25 and the corpus treatments (numpy)
+    repro_torch.data      synthetic vocabulary-mismatch corpus (numpy) and the
+                          encoder's triple pipeline
+    repro_torch.models    BM25 and the corpus treatments (numpy), and the
+                          trainable sparse encoders
     repro_torch.metrics   IR effectiveness metrics and latency statistics
     repro_torch.core      impact index, top-k, anytime SAAT, block-max DAAT,
                           the mutable index handle, exhaustive oracle
     repro_torch.kernels   hand-written CUDA kernels (``csrc/``) and their
                           plain PyTorch versions
-    repro_torch.serving   the anytime server, admission queue, index lifecycle
+    repro_torch.serving   the anytime server, admission queue, index lifecycle,
+                          sharded and pod serving
+    repro_torch.archs     the transformer layers and stack of the encoders
+    repro_torch.train     losses, the from-scratch AdamW, the trainer
+    repro_torch.checkpoint  atomic, sharded, async checkpoints
     repro_torch.launch    the serving CLI (``python -m repro_torch.launch.serve``)
+                          and the encoder's (``... .launch.train_encoder``)
 
 The package imports torch and numpy, never JAX and nothing of ``repro``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

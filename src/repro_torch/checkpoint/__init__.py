@@ -1,0 +1,2 @@
+"""Atomic, sharded, async checkpointing (the port of ``repro.checkpoint``)."""
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401

@@ -11,10 +11,13 @@
   counters endpoint, and raises without ``--device cpu`` when there is no
   GPU;
 * every name the reference's ``repro.metrics``, ``repro.kernels``,
-  ``repro.core``, ``repro.serving`` and ``repro.distributed`` export, and
-  every function and class of ``repro.core``'s and ``repro.metrics``'
-  modules and of ``serving/sharded.py``, ``serving/pod.py`` and
-  ``distributed/sharding.py``, the port's counterpart has too, but for the
+  ``repro.core``, ``repro.serving``, ``repro.distributed``, ``repro.train``
+  and ``repro.checkpoint`` export, and every function and class of
+  ``repro.core``'s and ``repro.metrics``' modules, of ``serving/sharded.py``,
+  ``serving/pod.py`` and ``distributed/sharding.py``, and of the trainable
+  encoder's modules (``archs/layers.py``, ``archs/transformer.py``,
+  ``models/sparse_encoder.py``, ``train/*``, ``data/pipeline.py``,
+  ``checkpoint/manager.py``), the port's counterpart has too, but for the
   names of modules not yet ported (``NOT_YET_PORTED``); the kernels'
   ``ops`` and ``ref`` modules still import by ``from ... import ops`` after
   the package re-exports the wrappers.
@@ -87,6 +90,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "repro_torch.launch.serve", "repro_torch.core.wacky", "repro_torch.core.pareto",
         "repro_torch.serving.sharded", "repro_torch.serving.pod",
         "repro_torch.distributed", "repro_torch.distributed.sharding",
+        "repro_torch.archs.layers", "repro_torch.archs.transformer",
+        "repro_torch.models.sparse_encoder", "repro_torch.train.losses",
+        "repro_torch.train.optim", "repro_torch.train.trainer", "repro_torch.train.tree",
+        "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+        "repro_torch.launch.train_encoder",
     }
     assert expected <= set(report["modules"])
 
@@ -286,7 +294,9 @@ def test_serve_cli_raises_without_a_gpu():
 
 # Names the reference exports (or defines in a module the defines check
 # reads) whose modules the port has not ported yet, with their queue item
-# (ROADMAP.md, queue A): the rest of ``repro.distributed``.
+# (ROADMAP.md, queue A): the rest of ``repro.distributed``; the recsys and
+# GNN batches and ``shard_batch`` of ``repro.data.pipeline``; the MoE layer
+# and the KV cache, prefill and decode of the transformer.
 NOT_YET_PORTED = {
     name: "A12" for name in (
         "collectives", "elastic", "CompressionConfig", "compress_decompress",
@@ -296,6 +306,9 @@ NOT_YET_PORTED = {
         "batch_dim_sharding", "batch_shardings", "cache_shardings", "constraint",
         "current_axes", "fully_sharded_dim", "normalize_path", "param_shardings",
         "param_specs", "spec_for_path", "train_state_shardings",
+        "recsys_batches", "gnn_batches", "shard_batch",
+        "MoEConfig", "moe", "moe_params", "CacheSpec", "init_cache", "abstract_cache",
+        "lm_decode_step", "lm_prefill", "decode_step_model_flops", "abstract_lm_params",
     )
 }
 KERNEL_PACKAGES = ("block_prune", "block_prune_csr", "block_topk", "chunk_step",
@@ -315,7 +328,8 @@ def _init_exports(package: str) -> set:
     return names
 
 
-@pytest.mark.parametrize("package", ["metrics", "kernels", "core", "serving", "distributed"])
+@pytest.mark.parametrize("package", ["metrics", "kernels", "core", "serving", "distributed",
+                                     "train", "checkpoint"])
 def test_port_packages_export_what_the_reference_exports(package):
     port = importlib.import_module(f"repro_torch.{package}")
     want = _init_exports(f"repro.{package}")
@@ -339,9 +353,13 @@ def test_ref_modules_list_every_reference_module():
 # the defines check reads too (``distributed.sharding``: ``Axes`` and
 # ``mesh_axes``; its other names are A12's).
 SHARDED_MODULES = ("serving.sharded", "serving.pod", "distributed.sharding")
+# The trainable encoder's modules (queue A11).
+ENCODER_MODULES = ("archs.layers", "archs.transformer", "models.sparse_encoder",
+                   "train.losses", "train.optim", "train.trainer", "data.pipeline",
+                   "checkpoint.manager")
 
 
-@pytest.mark.parametrize("module", REF_MODULES + SHARDED_MODULES)
+@pytest.mark.parametrize("module", REF_MODULES + SHARDED_MODULES + ENCODER_MODULES)
 def test_port_modules_define_what_the_reference_defines(module):
     ref = importlib.import_module(f"repro.{module}")
     port = importlib.import_module(f"repro_torch.{module}")
