@@ -77,7 +77,19 @@ It needs one CUDA card and exits non-zero without one. In order:
    restored bit for bit; then ``launch/train_encoder.py``'s ``main`` at the
    example's settings (train, encode, index, SAAT against BM25) and its
    learned index's queries through ``impact_scatter_topk`` and
-   ``impact_scatter`` against the plain sort mode;
+   ``impact_scatter`` against the plain sort mode; then the model families
+   (``arch_phase``, plain PyTorch): every arch of ``repro_torch.configs``
+   at its smoke size on the card against the CPU (step 0's loss and
+   gradients; the LMs' prefill and decode logits; the recsys models'
+   ``retrieve_topk``), ``launch/train.py``'s ``main`` at the published
+   widths of gemma3-1b (B = 2, 2,048 tokens: the 1,024 windows bite) and
+   granite-moe-3b-a800m (40 experts, top-8; the share of routes dropped),
+   GraphCast at ``full_graph_sm`` in bf16 (against the card's f32 run, and
+   its train state's checkpoint restored bit for bit), dcn-v2 at 65,536
+   rows with its full tables, ``retrieve_topk`` of dcn-v2 and sasrec over
+   1,000,448 candidates against a full sort, and gemma3-1b's prefill of
+   2,048 tokens and 32 decode steps against the full forward (f32), timed
+   in bf16 at B = 2 and 32;
 9. the dense ``block_prune`` on its oracle path: at the reference's
    contract shapes and its edges (the engine's widths at B = 63 and 1, an
    Lq of several rounds of loads, one block) against its plain version at
@@ -122,6 +134,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -139,7 +152,26 @@ import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.archs.transformer import train_step_model_flops  # noqa: E402
+from repro_torch.archs import layers as arch_layers  # noqa: E402
+from repro_torch.archs.gnn import (  # noqa: E402
+    abstract_gnn_params,
+    gnn_forward,
+    gnn_loss,
+    init_gnn_params,
+)
+from repro_torch.archs.gnn import train_step_model_flops as gnn_train_flops  # noqa: E402
+from repro_torch.archs.recsys import init_params as init_recsys_params  # noqa: E402
+from repro_torch.archs.recsys import retrieve_topk, score_candidates  # noqa: E402
+from repro_torch.archs.recsys import train_step_model_flops as recsys_train_flops  # noqa: E402
+from repro_torch.archs.transformer import (  # noqa: E402
+    decode_step_model_flops,
+    init_lm_params,
+    lm_decode_step,
+    lm_hidden_states,
+    lm_logits,
+    lm_prefill,
+    train_step_model_flops,
+)
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     DaatResult,
@@ -165,8 +197,14 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.daat import _dense_blockmax_rows, _mask_dead_blocks  # noqa: E402
 from repro_torch.core.index_handle import IndexHandle  # noqa: E402
 from repro_torch.core.saat import _gather_postings_batched, saat_search_vmap  # noqa: E402
+from repro_torch.configs import ARCHS, batch_specs  # noqa: E402
 from repro_torch.core.topk import canonical_topk_merge, topk  # noqa: E402
-from repro_torch.data.pipeline import TripleSampler  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    TripleSampler,
+    gnn_batches,
+    lm_token_batches,
+    recsys_batches,
+)
 from repro_torch.data.synthetic import CorpusConfig, generate_corpus  # noqa: E402
 from repro_torch.distributed import make_mesh  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
@@ -184,6 +222,7 @@ from repro_torch.kernels.impact_scatter_topk import ops as fused_ops  # noqa: E4
 from repro_torch.kernels.impact_scatter_topk import ref as fused_ref  # noqa: E402
 from repro_torch.kernels.sparse_score import ops as score_ops  # noqa: E402
 from repro_torch.kernels.sparse_score import ref as score_ref  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import train_encoder  # noqa: E402
 from repro_torch.launch.serve import _mutation_schedule  # noqa: E402
 from repro_torch.metrics.ir_metrics import (  # noqa: E402
@@ -2974,32 +3013,11 @@ def encoder_full_width(corpus, device) -> None:
           f"{f['encode_batch']}: {dt:.2f} s, {n / dt:.0f} docs/s (host clock, to host arrays); "
           f"{len(d) / n:.1f} nonzeros a doc")
 
-    build = Path(__file__).resolve().parent / "build"
-    build.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build) as root:
-        cm = CheckpointManager(root, keep=1)
-        t0 = time.perf_counter()
-        cm.save(int(state.step), state, {"phase": "encoder"})
-        t_snap = time.perf_counter() - t0
-        cm.wait()
-        t_save = time.perf_counter() - t0
-        nbytes = sum(os.path.getsize(os.path.join(dp, fn)) for dp, _, fns in os.walk(root)
-                     for fn in fns)
-        t0 = time.perf_counter()
-        restored, meta = cm.restore(abstract_train_state(init_encoder_params(None, cfg, "meta")),
-                                    device=device)
-        sync()
-        t_restore = time.perf_counter() - t0
-    saved, back = state.to_tree(), restored.to_tree()
-    flat_s, flat_r = flatten_with_paths(saved)[0], flatten_with_paths(back)[0]
-    check([k for k, _ in flat_s] == [k for k, _ in flat_r] and meta == {"phase": "encoder"}
-          and all(a.dtype == b.dtype and torch.equal(a, b)
-                  for (_, a), (_, b) in zip(flat_s, flat_r)),
-          "encoder full width: the restored train state differs from the saved one")
-    print(f"encoder full width: checkpoint of the train state ({len(flat_s)} leaves, "
-          f"{nbytes / 1e9:.3f} GB on disk): save {t_snap:.2f} s to host, {t_save:.2f} s written "
-          f"(async writer, waited), restore {t_restore:.2f} s to the card; equal bit for bit")
-    del state, restored, model
+    line = checkpoint_round_trip(
+        state, abstract_train_state(init_encoder_params(None, cfg, "meta")),
+        {"phase": "encoder"}, device, "encoder full width")
+    print(f"encoder full width: {line}")
+    del state, model
 
 
 def encoder_loop(device) -> None:
@@ -3058,6 +3076,451 @@ def encoder_phase(corpus, device) -> None:
     print(f"encoder phase: parity {t1 - t0:.1f} s, full width {t2 - t1:.1f} s, loop "
           f"{time.perf_counter() - t2:.1f} s")
 
+
+# ---------------------------------------------------------------------------
+# the model families (configs/*, archs/*, launch/train.py): every arch's
+# smoke config on the card against the CPU; gemma3-1b, granite-moe-3b-a800m,
+# GraphCast and dcn-v2 at their published widths; retrieval over the
+# retrieval_cand cell's candidates; gemma3-1b's prefill and decode against
+# its full forward. Plain PyTorch throughout, as the reference is plain jnp.
+# ---------------------------------------------------------------------------
+
+# card against CPU at smoke size, f32, TF32 off: a few ulps apart a product
+# (and index_add_ adds with atomics on the card), so the loss within
+# ARCH_RTOL, the gradients within ARCH_GRAD_RTOL and an atol of
+# ARCH_GRAD_ATOL_FRAC times the leaf's largest gradient, or 1e-3 of the
+# model's largest where that is larger (a leaf whose exact gradient is 0,
+# as the last bias of DIN's attention MLP, holds rounding noise only); the
+# logits of a prefill and its decode steps within ARCH_RTOL of their largest
+ARCH_RTOL = 1e-4
+ARCH_GRAD_RTOL, ARCH_GRAD_ATOL_FRAC = 1e-4, 1e-5
+# smoke batches: LM (batch, seq), GNN (nodes, edges), recsys rows; the LM
+# prefill's prompt and decode steps; retrieval candidates and k
+ARCH_SMOKE = dict(lm=(2, 32), gnn=(64, 256), recsys=16, prompt=28, decode=4, n_cand=20_000,
+                  k=100)
+# full width through launch/train.py's main (the published configs, --full)
+ARCH_TRAIN = {
+    "gemma3-1b": ["--full", "--batch", "2", "--seq", "2048", "--steps", "6"],
+    "granite-moe-3b-a800m": ["--full", "--batch", "4", "--seq", "512", "--steps", "4"],
+    "dcn-v2": ["--full", "--batch", "65536", "--steps", "4"],
+}
+ARCH_WARMUP = 2  # steps left out of a median
+GRAPHCAST_CELL, GRAPHCAST_STEPS = "full_graph_sm", 4
+# GraphCast in bf16 against the card's own f32 run on the same params and
+# graph: bf16's unit roundoff is 2^-8 (3.9e-3); 16 residual blocks of two
+# products each and the aggregates' bf16 adds, so the node outputs within
+# 8 of it in relative L2 norm
+GRAPHCAST_BF16_REL = 3e-2
+RETRIEVAL_ARCHS = ("dcn-v2", "sasrec")
+# gemma3-1b prefill of a 2,048-token prompt into a 4,096-token cache, then
+# decode steps; in f32 each step's logits against the full forward of the
+# longer prompt within DECODE_REL of the largest logit, argmax equal (or its
+# logit within that of the other's); in bf16 timed, also at B = 32
+DECODE = dict(batch=2, prompt=2048, cache=4096, steps=32, wide_batch=32, timed_steps=16)
+DECODE_REL = 1e-3
+BF16_PEAK = 989e12  # H100 SXM dense bf16, FLOP/s
+
+
+def arch_smoke_batch(spec, cfg) -> dict:
+    """A smoke-size batch of the arch's family, on the host."""
+    a = ARCH_SMOKE
+    if spec.family == "lm":
+        return next(lm_token_batches(cfg.vocab, *a["lm"], seed=0, device="cpu"))
+    if spec.family == "gnn":
+        return next(gnn_batches(cfg, *a["gnn"], seed=0, device="cpu"))
+    return next(recsys_batches(cfg, a["recsys"], seed=0, device="cpu"))
+
+
+def grads_close(g_card, g_cpu, names, what) -> None:
+    largest = max(float(g.abs().max()) for g in g_cpu)
+    for name, a, b in zip(names, g_card, g_cpu):
+        max_err(a, b, f"{what}: gradient of {name}", ARCH_GRAD_RTOL,
+                ARCH_GRAD_ATOL_FRAC * max(float(b.abs().max()), 1e-3 * largest))
+
+
+RETRIEVAL_USER = {"dcn-v2": ("dense", "sparse"), "din": ("hist", "hist_mask"),
+                  "sasrec": ("seq", "mask"), "wide-deep": ("sparse",)}
+
+
+def retrieval_query(batch, kind, n_cand, seed, device) -> dict:
+    """The ``retrieval_cand`` layout: the user-side features of the batch's
+    first row and ``n_cand`` raw candidate ids drawn from a seed."""
+    q = {k: batch[k][:1].to(device) for k in RETRIEVAL_USER[kind]}
+    ids = np.random.default_rng(seed).integers(0, 1 << 30, n_cand).astype(np.int32)
+    q["candidates"] = torch.as_tensor(ids, device=device)
+    return q
+
+
+def lm_decode_parity(models, tokens, cfg, device, what) -> str:
+    """A prefill of the first tokens and decode steps over the rest, on the
+    card and on the CPU: the logits of every step against each other."""
+    a = ARCH_SMOKE
+    logs = {}
+    for dev, model in models.items():
+        t = tokens.to("cpu" if dev == "cpu" else device)
+        logits, cache = lm_prefill(model, t[:, :a["prompt"]], cfg, t.shape[1])
+        steps = [logits]
+        for i in range(a["prompt"], a["prompt"] + a["decode"]):
+            pos = torch.full((t.shape[0],), i, dtype=torch.int32, device=t.device)
+            logits, cache = lm_decode_step(model, cache, t[:, i:i + 1], pos, cfg)
+            steps.append(logits)
+        logs[dev] = torch.stack(steps)
+    err = max_err(logs["card"], logs["cpu"], f"{what}: prefill and decode logits", ARCH_RTOL,
+                  ARCH_RTOL * float(logs["cpu"].abs().max()))
+    return f"prefill of {a['prompt']} + {a['decode']} decode steps, logits max diff {err:.3g}"
+
+
+def retrieval_parity(models, batch, cfg, device, what) -> str:
+    res = {}
+    for dev, model in models.items():
+        q = retrieval_query(batch, cfg.kind, ARCH_SMOKE["n_cand"], 1,
+                            "cpu" if dev == "cpu" else device)
+        with torch.no_grad():
+            res[dev] = retrieve_topk(model, q, cfg, k=ARCH_SMOKE["k"])
+    (s_g, i_g), (s_c, i_c) = res["card"], res["cpu"]
+    swaps = tie_swaps(s_g[None], i_g[None], s_c[None], i_c[None], f"{what}: retrieve_topk")
+    return (f"retrieve_topk over {ARCH_SMOKE['n_cand']:,} candidates, ids equal but {swaps} "
+            f"ranks at near-ties")
+
+
+def arch_parity(device) -> None:
+    """Every arch's smoke config from the same params (drawn on the host)
+    and batch on the card and on the CPU, f32: step 0's loss and gradients;
+    for the LMs a prefill and 4 decode steps, for the recsys models
+    ``retrieve_topk``."""
+    for arch_id, spec in ARCHS.items():
+        cfg = spec.smoke_config()
+        cpu = train_cli._init_params(spec, cfg, torch.Generator().manual_seed(0), "cpu")
+        models = {"cpu": cpu, "card": copy.deepcopy(cpu).to(device)}
+        loss_fn = train_cli._make_loss(spec, cfg)
+        batch = arch_smoke_batch(spec, cfg)
+        out = {}
+        for dev, model in models.items():
+            b = batch if dev == "cpu" else {k: v.to(device) for k, v in batch.items()}
+            loss, _ = loss_fn(model, b)
+            out[dev] = loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+        names = [n for n, _ in cpu.named_parameters()]
+        max_err(out["card"][0], out["cpu"][0], f"{arch_id}: step 0 loss", ARCH_RTOL, 0.0)
+        grads_close(out["card"][1], out["cpu"][1], names, arch_id)
+        line = (f"arch parity {arch_id} ({spec.family}, {cfg.n_params():,} params): step 0 loss "
+                f"{float(out['card'][0]):.7f} vs {float(out['cpu'][0]):.7f} (rtol {ARCH_RTOL}), "
+                f"{len(names)} gradients within rtol {ARCH_GRAD_RTOL}")
+        if spec.family == "lm":
+            line += "; " + lm_decode_parity(models, batch["tokens"], cfg, device, arch_id)
+        elif spec.family == "recsys":
+            line += "; " + retrieval_parity(models, batch, cfg, device, arch_id)
+        print(line)
+
+
+def moe_drop_shares(model, tokens, cfg) -> list:
+    """Each MoE layer's share of (token, expert) routes past their expert's
+    capacity in one forward of ``tokens``: the layer's dispatch of its own
+    input, as ``layers.moe`` computes it (one group on one card)."""
+    shares = []
+
+    def count(mod, args):
+        x = args[0]
+        xt = x.reshape(-1, x.shape[-1])
+        C = arch_layers._capacity(xt.shape[0], mod.cfg)
+        _, route = arch_layers._dispatch_one_group(xt, xt.float() @ mod.router, mod.cfg, C,
+                                                   x.dtype)
+        shares.append(1.0 - float(route[1].float().mean()))
+
+    handles = [block.moe.register_forward_pre_hook(count) for block in model.layers]
+    try:
+        with torch.no_grad():
+            lm_hidden_states(model, tokens, cfg)
+    finally:
+        for h in handles:
+            h.remove()
+    return shares
+
+
+def train_line(what, cfg, ms, units, unit, flops, losses, n_params) -> str:
+    med = float(np.median(ms))
+    peak = BF16_PEAK if cfg.dtype == torch.bfloat16 else F32_PEAK
+    rate = flops / (med / 1e3)
+    return (f"{what}: {n_params:,} params, {str(cfg.dtype).split('.')[-1]}; {len(ms)} timed "
+            f"steps: median {med:.2f} ms, max {max(ms):.2f} ms a step (host clock, "
+            f"synchronized); {units / (med / 1e3):,.0f} {unit}/s; model FLOPs a step {flops:.4g} "
+            f"= {rate / 1e12:.2f} TFLOP/s, {100 * rate / peak:.1f}% of the "
+            f"{'bf16' if peak == BF16_PEAK else 'f32'} peak {peak / 1e12:.0f} TFLOP/s; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+
+
+def arch_train_full(arch_id, device) -> dict:
+    """``launch/train.py``'s ``main`` at the arch's published widths."""
+    spec = ARCHS[arch_id]
+    argv = ARCH_TRAIN[arch_id]
+    torch.cuda.reset_peak_memory_stats()
+    report = train_cli.main(["--arch", arch_id, "--device", str(device), *argv])
+    cfg, state = report["cfg"], report["state"]
+    losses = [float(h["loss"]) for h in report["history"]]
+    check(all(np.isfinite(losses)), f"{arch_id} at full width: a loss is not finite: {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in state.params.parameters()),
+          f"{arch_id} at full width: a weight is not finite")
+    batch = int(argv[argv.index("--batch") + 1])
+    if spec.family == "lm":
+        seq = int(argv[argv.index("--seq") + 1])
+        flops, units, unit = train_step_model_flops(cfg, batch, seq), batch * seq, "tokens"
+    else:
+        flops, units, unit = recsys_train_flops(cfg, batch), batch, "rows"
+    n_params = sum(p.numel() for p in state.params.parameters())
+    check(n_params == cfg.n_params(), f"{arch_id}: params differ from the config's count")
+    print(train_line(f"{arch_id} full width ({' '.join(argv)})", cfg,
+                     report["ms"][ARCH_WARMUP:], units, unit, flops, losses, n_params))
+    seq = int(argv[argv.index("--seq") + 1]) if "--seq" in argv else 0
+    profile_step(f"{arch_id} full width: one train step", train_cli._make_loss(spec, cfg), state,
+                 next(train_cli._make_batches(spec, cfg, batch, seq, device)))
+    return report
+
+
+def profile_step(label, loss_fn, state, batch) -> None:
+    """One more train step (after one outside the profile) under
+    ``torch.profiler``; it updates ``state``'s module in place."""
+    step = make_train_step(loss_fn, AdamWConfig())
+    holder = [state]
+
+    def one_step():
+        holder[0], met = step(holder[0], batch)
+        float(met["loss"])
+
+    profile_call(label, one_step)
+
+
+def checkpoint_round_trip(state, abstract, meta, device, what) -> str:
+    """``state`` written by a ``CheckpointManager`` (async writer, waited on)
+    and restored onto ``device`` from the ``abstract`` state: equal bit for
+    bit, with its meta. Returns the line's sizes and seconds."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        cm = CheckpointManager(root, keep=1)
+        t0 = time.perf_counter()
+        cm.save(int(state.step), state, meta)
+        t_snap = time.perf_counter() - t0
+        cm.wait()
+        t_save = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(dp, fn)) for dp, _, fns in os.walk(root)
+                     for fn in fns)
+        with open(os.path.join(root, f"step_{int(state.step):09d}", "manifest.json")) as f:
+            dtypes = sorted({leaf["dtype"] for leaf in json.load(f)["leaves"]})
+        t0 = time.perf_counter()
+        restored, got_meta = cm.restore(abstract, device=device)
+        sync()
+        t_restore = time.perf_counter() - t0
+    flat_s, flat_r = flatten_with_paths(state.to_tree())[0], flatten_with_paths(restored.to_tree())[0]
+    check([k for k, _ in flat_s] == [k for k, _ in flat_r] and got_meta == meta
+          and all(a.dtype == b.dtype and torch.equal(a, b)
+                  for (_, a), (_, b) in zip(flat_s, flat_r)),
+          f"{what}: the restored train state differs from the saved one")
+    del restored
+    return (f"checkpoint of the train state ({len(flat_s)} leaves, dtypes {dtypes}, "
+            f"{nbytes / 1e9:.3f} GB on disk): save {t_snap:.2f} s to host, {t_save:.2f} s "
+            f"written (async writer, waited), restore {t_restore:.2f} s to the card; equal bit "
+            f"for bit")
+
+
+def graphcast_full(device) -> None:
+    """GraphCast at the ``full_graph_sm`` cell's sizes (its published 16 x 512
+    processor, bf16): the bf16 forward against the card's own f32 run,
+    timed train steps, and its train state's checkpoint round trip."""
+    spec = ARCHS["graphcast"]
+    d = spec.cells[GRAPHCAST_CELL].dims
+    cfg = spec.config_for(GRAPHCAST_CELL)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_gnn_params(torch.Generator(device=device).manual_seed(0), cfg, device)
+    batches = list(itertools.islice(gnn_batches(cfg, d["n_nodes"], d["n_edges"], device=device),
+                                    GRAPHCAST_STEPS))
+    b = batches[0]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = copy.deepcopy(model).float()
+    with torch.no_grad():
+        outs = [gnn_forward(m, b["node_feats"], b["edge_src"], b["edge_dst"], c,
+                            edge_feats=b["edge_feats"]).float()
+                for m, c in ((model, cfg), (model32, cfg32))]
+    del model32
+    rel = float((outs[0] - outs[1]).norm() / outs[1].norm())
+    check(rel <= GRAPHCAST_BF16_REL, f"graphcast: bf16 outputs {rel:.3g} from f32 in relative L2, "
+                                     f"over {GRAPHCAST_BF16_REL}")
+    step = make_train_step(lambda p, bt: gnn_loss(p, bt, cfg),
+                           AdamWConfig(warmup_steps=2, total_steps=GRAPHCAST_STEPS))
+    state = init_train_state(model)
+    ms, losses = [], []
+    for bt in batches:
+        sync()
+        t0 = time.perf_counter()
+        state, met = step(state, bt)
+        losses.append(float(met["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    check(all(np.isfinite(losses)), f"graphcast at full width: a loss is not finite: {losses}")
+    profile_step("graphcast full width: one train step", lambda p, bt: gnn_loss(p, bt, cfg),
+                 state, batches[-1])
+    n_params = sum(p.numel() for p in model.parameters())
+    print(train_line(f"graphcast full width ({GRAPHCAST_CELL}: {d['n_nodes']:,} nodes, "
+                     f"{d['n_edges']:,} edges, d_feat {cfg.d_feat}, {cfg.n_layers} x "
+                     f"{cfg.d_hidden}, {cfg.aggregator})", cfg, ms[ARCH_WARMUP:], d["n_nodes"],
+                     "nodes", gnn_train_flops(cfg, d["n_nodes"], d["n_edges"]), losses, n_params)
+          + f"; bf16 outputs {rel:.3g} from the f32 run's in relative L2 (limit "
+            f"{GRAPHCAST_BF16_REL})")
+    line = checkpoint_round_trip(state, abstract_train_state(abstract_gnn_params(cfg)),
+                                 {"arch": "graphcast"}, device, "graphcast")
+    print(f"graphcast full width: {line}")
+
+
+def retrieval_full(arch_id, model, cfg, device) -> None:
+    """``retrieve_topk`` over the ``retrieval_cand`` cell's candidates
+    (1,000,000 padded to 1,000,448), its ids against a full stable sort of
+    ``score_candidates``'s scores but at near-ties; timed (host clock,
+    synchronized, median of 3)."""
+    n_cand = batch_specs(ARCHS[arch_id], "retrieval_cand")["candidates"].shape[0]
+    user = next(recsys_batches(cfg, 1, seed=4, device=device))
+    q = retrieval_query(user, cfg.kind, n_cand, 5, device)
+    ms = []
+    with torch.no_grad():
+        for _ in range(4):
+            sync()
+            t0 = time.perf_counter()
+            s, ids = retrieve_topk(model, q, cfg)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        full_s, full_i = torch.sort(score_candidates(model, q, cfg), descending=True, stable=True)
+    k = s.shape[0]
+    swaps = tie_swaps(s[None], ids[None], full_s[None, :k], full_i[None, :k],
+                      f"{arch_id}: retrieve_topk against a full sort")
+    med = float(np.median(ms[1:]))
+    print(f"{arch_id} retrieval: {n_cand:,} candidates, k {k}: median {med:.2f} ms (host clock, "
+          f"synchronized, 3 after 1), {n_cand / (med / 1e3):,.0f} candidates/s; ids equal to a "
+          f"full stable sort of the scores but {swaps} ranks at near-ties")
+
+
+def lm_decode_full(device) -> None:
+    """gemma3-1b at its published widths: a 2,048-token prompt prefilled into
+    a 4,096-token cache, then decode steps, in f32 against the full forward
+    of the longer prompt; then timed in bf16 at B = 2 and 32."""
+    D = DECODE
+    spec = ARCHS["gemma3-1b"]
+    P, total = D["prompt"], D["prompt"] + D["steps"]
+    cfg32 = dataclasses.replace(spec.config_for("decode_32k"), dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = init_lm_params(gen, cfg32, device)
+    toks = next(lm_token_batches(cfg32.vocab, D["batch"], total, seed=2, device=device))["tokens"]
+    with torch.no_grad():
+        full = lm_logits(model, toks, cfg32)  # [B, total, vocab]
+    logits, cache = lm_prefill(model, toks[:, :P], cfg32, D["cache"])
+    worst, near_ties = 0.0, 0
+    for i in range(P - 1, total):
+        if i >= P:
+            pos = torch.full((D["batch"],), i, dtype=torch.int32, device=device)
+            logits, cache = lm_decode_step(model, cache, toks[:, i:i + 1], pos, cfg32)
+        want = full[:, i]
+        scale = float(want.abs().max())
+        diff = float((logits - want).abs().max())
+        check(diff <= DECODE_REL * scale, f"gemma3 decode at {i}: logits {diff:.3g} from the full "
+                                         f"forward's, over {DECODE_REL} x {scale:.3g}")
+        top = logits.argmax(-1)
+        same = top == want.argmax(-1)
+        near = want.gather(-1, top[:, None])[:, 0] >= want.max(-1).values - DECODE_REL * scale
+        check(bool((same | near).all()), f"gemma3 decode at {i}: argmax differs, not a near-tie")
+        near_ties += int((~same).sum())
+        worst = max(worst, diff / scale)
+    print(f"gemma3-1b prefill/decode (f32, TF32 off): prefill of {P} tokens into a "
+          f"{D['cache']}-token cache (windows of {cfg32.window_pattern[0]:,} wrap), then "
+          f"{D['steps']} decode steps at "
+          f"B = {D['batch']}: every step's logits within {worst:.3g} x max |logit| of the full "
+          f"forward of the longer prompt (limit {DECODE_REL}); argmax equal but {near_ties} "
+          f"near-ties")
+    del model, full, cache, logits
+
+    cfg_p = spec.config_for("prefill_32k")  # bf16, attn_chunk 2048
+    cfg_d = spec.config_for("decode_32k")
+    model = init_lm_params(gen, cfg_p, device)
+    for B in (D["batch"], D["wide_batch"]):
+        torch.cuda.reset_peak_memory_stats()
+        toks = next(lm_token_batches(cfg_p.vocab, B, total, seed=3, device=device))["tokens"]
+        pre = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = lm_prefill(model, toks[:, :P], cfg_p, D["cache"])
+            sync()
+            pre.append(1e3 * (time.perf_counter() - t0))
+        dec = []
+        for i in range(P, P + D["timed_steps"]):
+            pos = torch.full((B,), i, dtype=torch.int32, device=device)
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = lm_decode_step(model, cache, toks[:, i:i + 1], pos, cfg_d)
+            sync()
+            dec.append(1e3 * (time.perf_counter() - t0))
+        check(bool(torch.isfinite(logits).all()), f"gemma3 bf16 decode at B = {B}: not finite")
+        profile_call(f"gemma3-1b bf16 decode step at B = {B}",
+                     lambda: lm_decode_step(model, cache, toks[:, P:P + 1], pos, cfg_d))
+        pre_ms, dec_ms = float(np.median(pre[1:])), float(np.median(dec[1:]))
+        flops = decode_step_model_flops(cfg_d, B, P + D["timed_steps"])
+        print(f"gemma3-1b bf16 at B = {B}: prefill of {P} tokens into a {D['cache']}-token cache "
+              f"{pre_ms:.2f} ms (median of 2 after 1; {B * P / (pre_ms / 1e3):,.0f} tokens/s); "
+              f"decode {dec_ms:.3f} ms a step (median of {len(dec) - 1} after 1), "
+              f"{B / (dec_ms / 1e3):,.0f} tokens/s, {flops / (dec_ms / 1e3) / 1e12:.2f} TFLOP/s "
+              f"of decode_step_model_flops; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del cache, logits
+    del model
+
+
+def free_memory(what) -> None:
+    """Drops what is unreachable and prints what stays allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{what}: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the card]")
+
+
+def arch_phase(device) -> None:
+    """This slice's path: the model families, plain PyTorch (it launches no
+    kernel of the port; the counters are set to 0 before and read after)."""
+    clock = PhaseClock()
+    reset_launches()
+    free_memory("before the model families")
+    arch_parity(device)
+    clock.end("arch parity")
+    for arch_id in ("gemma3-1b", "granite-moe-3b-a800m"):
+        free_memory(f"before {arch_id}")
+        report = arch_train_full(arch_id, device)
+        if arch_id == "granite-moe-3b-a800m":
+            cfg = report["cfg"]
+            zipf = next(lm_token_batches(cfg.vocab, 4, 512, seed=9, device=device))["tokens"]
+            uniform = torch.randint(0, cfg.vocab, (4, 512), device=device,
+                                    generator=torch.Generator(device=device).manual_seed(9))
+            for what, t in (("a batch of the training stream (Zipf token ids)", zipf),
+                            ("a batch of uniform token ids", uniform)):
+                shares = 100 * np.array(moe_drop_shares(report["state"].params, t, cfg))
+                print(f"granite-moe-3b-a800m: routes dropped past capacity (capacity factor "
+                      f"{cfg.moe.capacity_factor}, {cfg.moe.n_experts} experts, top-"
+                      f"{cfg.moe.top_k}, one group of 2,048 tokens) in a forward of {what} after "
+                      f"the steps: {shares.mean():.2f}% over the {len(shares)} layers (layer 0 "
+                      f"{shares[0]:.2f}%, median {np.median(shares):.2f}%, max {shares.max():.2f}%)")
+        del report
+        clock.end(f"{arch_id} full width")
+    free_memory("before graphcast")
+    graphcast_full(device)
+    clock.end("graphcast full width")
+    free_memory("before dcn-v2")
+    report = arch_train_full("dcn-v2", device)
+    retrieval_full("dcn-v2", report["state"].params, report["cfg"], device)
+    del report
+    cfg = ARCHS["sasrec"].config_for("retrieval_cand")
+    sasrec = init_recsys_params(torch.Generator(device=device).manual_seed(0), cfg, device)
+    retrieval_full("sasrec", sasrec, cfg, device)
+    del sasrec
+    clock.end("dcn-v2 full width and retrieval")
+    free_memory("before gemma3 prefill and decode")
+    lm_decode_full(device)
+    free_memory("after the model families")
+    clock.end("gemma3 prefill and decode")
+    launches = read_launches()
+    print(f"arch phase launches: {launches} (plain PyTorch: no kernel of the port on this path)")
+    print(f"arch phase seconds: {json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})}")
 
 
 class PhaseClock:
@@ -3165,11 +3628,14 @@ def run(args, device) -> None:
     wacky_phase(data, {m: enc.weights for m, enc in encs.items()}, SERVE_K)
     frontier_phase(data, np.asarray(corpus.qrels), rr, latency, d_results, d_latency)
     phase.end("weight analysis")
-    # the trainable encoder keeps its own peak; the paths' peak resumes after
+    # the encoder and the model families keep their own peaks; the paths' peak
+    # resumes after
     paths_peak = torch.cuda.max_memory_allocated()
     encoder_phase(corpus, device)
-    torch.cuda.reset_peak_memory_stats()
     phase.end("encoder")
+    arch_phase(device)
+    torch.cuda.reset_peak_memory_stats()
+    phase.end("model families")
 
     # the dense prune's oracle path, then serving on the spladev2 shard
     dense_rows, dense_launches = dense_prune_phase(index, qt[:BATCH], qw[:BATCH], device, args.seed)
@@ -3196,7 +3662,7 @@ def run(args, device) -> None:
         rows[name] = [r for r in rows[batched] if r["what"].startswith("main B=1")]
     phase.end("single-query wrappers")
     peak = max(paths_peak, torch.cuda.max_memory_allocated())
-    print(f"peak device memory (the serving paths; the encoder phase apart): {peak / 1e9:.2f} GB")
+    print(f"peak device memory (the serving paths; the encoder and model-family phases apart): {peak / 1e9:.2f} GB")
 
     errs = {
         "impact_scatter": max([err_s] + [r["max_abs_err"] for r in rows["impact_scatter"]]),

@@ -2,8 +2,8 @@
 
 Mirrors the layout of the JAX package, which stays the reference:
 
-    repro_torch.data      synthetic vocabulary-mismatch corpus (numpy) and the
-                          encoder's triple pipeline
+    repro_torch.data      synthetic vocabulary-mismatch corpus and graphs
+                          (numpy), and the training batch pipelines
     repro_torch.models    BM25 and the corpus treatments (numpy), and the
                           trainable sparse encoders
     repro_torch.metrics   IR effectiveness metrics and latency statistics
@@ -13,11 +13,14 @@ Mirrors the layout of the JAX package, which stays the reference:
                           plain PyTorch versions
     repro_torch.serving   the anytime server, admission queue, index lifecycle,
                           sharded and pod serving
-    repro_torch.archs     the transformer layers and stack of the encoders
+    repro_torch.archs     the LM transformers (MoE, KV cache), the GNN, the
+                          recsys models, and the encoders' layers
+    repro_torch.configs   the arch registry: 10 published configs, 40 cells
     repro_torch.train     losses, the from-scratch AdamW, the trainer
     repro_torch.checkpoint  atomic, sharded, async checkpoints
-    repro_torch.launch    the serving CLI (``python -m repro_torch.launch.serve``)
-                          and the encoder's (``... .launch.train_encoder``)
+    repro_torch.launch    the serving CLI (``python -m repro_torch.launch.serve``),
+                          the encoder's (``... .launch.train_encoder``) and the
+                          arch trainer (``... .launch.train --arch <id>``)
 
 The package imports torch and numpy, never JAX and nothing of ``repro``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

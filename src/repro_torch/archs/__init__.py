@@ -1,3 +1,7 @@
-"""Model code of the port: the transformer layers and stack that the sparse
-encoders use (``repro.archs.layers`` and ``repro.archs.transformer``).
-The GNN and recsys families are not ported yet."""
+"""Model code of the port (``repro.archs``): the transformer LMs (dense,
+MoE, GQA, local-global; KV cache, prefill and decode) and the sparse
+encoders' backbone, the GraphCast-style GNN, and the four recsys models.
+
+The arch registry lives in ``repro_torch.configs``; this package holds the
+model code itself.
+"""

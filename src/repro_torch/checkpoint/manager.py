@@ -22,9 +22,11 @@ Properties:
 
 A state is any pytree of tensors (``repro_torch.train.tree``). A
 ``TrainState`` is written as its ``to_tree()``, in the reference's layout,
-so a checkpoint the reference wrote of an encoder ``TrainState`` restores
-into the port's, and the other way round. Leaves go through numpy, so a
-dtype numpy lacks (bfloat16) cannot be saved.
+so a checkpoint the reference wrote of a model's ``TrainState`` restores
+into the port's, and the other way round. Leaves go through numpy. A
+bfloat16 leaf, a dtype numpy lacks, is written as the reference's npz
+holds one, its 2-byte bits as ``|V2`` records with manifest dtype
+``"bfloat16"``, and read back through an int16 view.
 """
 from __future__ import annotations
 
@@ -52,10 +54,22 @@ def _as_tree(state):
     return state.to_tree() if hasattr(state, "to_tree") else state
 
 
-def _host_copy(x) -> np.ndarray:
+def _host_copy(x) -> tuple[np.ndarray, str]:
+    """(the leaf as a host array, its manifest dtype)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
-    return np.array(x)
+        host = x.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:  # numpy has no bfloat16: its bits, as |V2
+            return host.view(torch.int16).numpy().view("V2"), "bfloat16"
+        arr = host.numpy()
+    else:
+        arr = np.array(x)
+    return arr, str(arr.dtype)
+
+
+def _from_host(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:  # bfloat16 bits
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 @dataclasses.dataclass
@@ -79,7 +93,7 @@ class CheckpointManager:
     def save(self, step: int, state: Any, meta: Optional[dict] = None) -> None:
         """Snapshot to host memory now; write (possibly async) afterwards."""
         paths, _ = flatten_with_paths(_as_tree(state))
-        host = [(k, _host_copy(v)) for k, v in paths]
+        host = [(k, *_host_copy(v)) for k, v in paths]
         if self.async_writes:
             self._q.put((step, host, meta or {}))
         else:
@@ -110,7 +124,7 @@ class CheckpointManager:
         cur: dict = {}
         cur_bytes = 0
         manifest_leaves = []
-        for i, (key, arr) in enumerate(host_leaves):
+        for i, (key, arr, dtype) in enumerate(host_leaves):
             name = f"leaf_{i:05d}"
             if cur_bytes + arr.nbytes > limit and cur:
                 shards.append(cur)
@@ -123,7 +137,7 @@ class CheckpointManager:
                     "shard": len(shards),
                     "name": name,
                     "shape": list(arr.shape),
-                    "dtype": str(arr.dtype),
+                    "dtype": dtype,
                 }
             )
         if cur:
@@ -209,7 +223,7 @@ class CheckpointManager:
                 arr = shard_file(entry["shard"])[entry["name"]]
                 if tuple(arr.shape) != tuple(ref.shape):
                     raise ValueError(f"shape mismatch at {k}: {arr.shape} vs {tuple(ref.shape)}")
-                tensor = torch.from_numpy(arr)
+                tensor = _from_host(arr)
                 if tensor.dtype != ref.dtype:
                     tensor = tensor.to(ref.dtype)
                 restored.append(tensor.to(dev))

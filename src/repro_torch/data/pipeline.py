@@ -1,13 +1,13 @@
-"""Batch pipeline for training the sparse encoder (and a token stream for
-LM steps): the port of the part of ``repro.data.pipeline`` the encoder uses.
+"""Batch pipeline for training (LM / sparse encoder / recsys / GNN): the
+port of ``repro.data.pipeline``.
 
 Host-side numpy generators, drawing the reference's numbers in the
 reference's order from the same seed, that yield tensors on the given
 device (``cuda`` unless ``device="cpu"``). The encoder's triples come from
 the concept-latent corpus (``repro_torch.data.synthetic``), so ranking
 quality is learned, not scripted. All batch shapes are static; ``batches``
-iterators are infinite. The recsys and GNN batches and ``shard_batch`` are
-not ported yet.
+iterators are infinite. ``shard_batch`` (a batch placed on a mesh's
+shardings) is not ported yet.
 """
 from __future__ import annotations
 
@@ -88,3 +88,69 @@ class TripleSampler:
                 t, m = self._pad(self.corpus.doc(d)[0], self.d_len)
                 toks[i], mask[i] = t, m
             yield torch.as_tensor(toks, device=dev), torch.as_tensor(mask, device=dev), hi - lo
+
+
+def recsys_batches(cfg, batch: int, seed: int = 0, device=None) -> Iterator[dict]:
+    """Synthetic recsys batches with a learnable preference signal."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    while True:
+        if cfg.kind == "dcn-v2":
+            dense = rng.normal(size=(batch, cfg.n_dense)).astype(np.float32)
+            sparse = rng.integers(0, 1 << 30, (batch, cfg.table.n_slots)).astype(np.int32)
+            y = (dense[:, 0] + (sparse[:, 0] % 7 == 0) > 0.5).astype(np.float32)
+            b = {"dense": dense, "sparse": sparse, "label": y}
+        elif cfg.kind == "din":
+            hist = rng.integers(0, 1 << 30, (batch, cfg.seq_len)).astype(np.int32)
+            mask = rng.random((batch, cfg.seq_len)) > 0.2
+            tgt = np.where(
+                rng.random(batch) < 0.5, hist[:, 0], rng.integers(0, 1 << 30, batch)
+            ).astype(np.int32)
+            y = (tgt == hist[:, 0]).astype(np.float32)
+            b = {"hist": hist, "hist_mask": mask, "target": tgt, "label": y}
+        elif cfg.kind == "sasrec":
+            seq = rng.integers(0, 1 << 30, (batch, cfg.seq_len)).astype(np.int32)
+            pos = np.roll(seq, -1, axis=1)
+            neg = rng.integers(0, 1 << 30, (batch, cfg.seq_len)).astype(np.int32)
+            b = {
+                "seq": seq,
+                "pos": pos,
+                "neg": neg,
+                "mask": np.ones((batch, cfg.seq_len), dtype=bool),
+            }
+        elif cfg.kind == "wide-deep":
+            sparse = rng.integers(0, 1 << 30, (batch, cfg.table.n_slots)).astype(np.int32)
+            y = ((sparse[:, 0] % 5 == 0) | (sparse[:, 1] % 3 == 0)).astype(np.float32)
+            b = {"sparse": sparse, "label": y}
+        else:
+            raise ValueError(cfg.kind)
+        yield {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+
+def gnn_batches(cfg, n_nodes: int, n_edges: int, seed: int = 0, graph_readout_graphs: int = 0,
+                device=None) -> Iterator[dict]:
+    """Synthetic graph batches (fixed topology, fresh features per step)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    w_true = rng.normal(size=(cfg.d_feat, cfg.n_vars)).astype(np.float32) * 0.3
+    src_t, dst_t = torch.as_tensor(src, device=dev), torch.as_tensor(dst, device=dev)
+    while True:
+        feats = rng.normal(size=(n_nodes, cfg.d_feat)).astype(np.float32)
+        node_targets = feats @ w_true + 0.05 * rng.normal(size=(n_nodes, cfg.n_vars)).astype(np.float32)
+        b = {
+            "node_feats": torch.as_tensor(feats, device=dev),
+            "edge_src": src_t,
+            "edge_dst": dst_t,
+            "edge_feats": torch.as_tensor(
+                rng.normal(size=(n_edges, cfg.d_edge_feat)).astype(np.float32), device=dev),
+        }
+        if graph_readout_graphs:
+            gid = np.sort(rng.integers(0, graph_readout_graphs, n_nodes)).astype(np.int32)
+            b["graph_ids"] = torch.as_tensor(gid, device=dev)
+            b["targets"] = torch.as_tensor(
+                rng.normal(size=(graph_readout_graphs, cfg.n_vars)).astype(np.float32), device=dev)
+        else:
+            b["targets"] = torch.as_tensor(node_targets, device=dev)
+        yield b

@@ -9,8 +9,9 @@ the params' dtype.
 ``params`` is a pytree of tensors (``repro_torch.train.tree``) or an
 ``nn.Module``; for a module, grads and moments are dicts keyed by
 ``named_parameters()`` names, and ``adamw_update`` writes the new values
-into the module's parameters in place (the reference returns new arrays)
-and returns the module.
+into the module's parameters and the moments in place, a leaf at a time
+(the reference returns new arrays), and returns the module and the state
+holding those moments.
 """
 from __future__ import annotations
 
@@ -115,12 +116,17 @@ def adamw_update(grads, state: AdamWState, params,
     others = [leaves(t) for t in (grads, state.m, state.v)]
     if any(len(o) != len(p_flat) for o in others):
         raise ValueError("grads, moments and params differ in structure")
+    if isinstance(params, nn.Module):
+        # a leaf at a time, in place: a model of billions of params never
+        # holds a second copy of its params or moments
+        for (_, p), g, m, v in zip(p_flat, *others):
+            p_new, m_new, v_new = upd(p, g, m, v)
+            p.copy_(p_new)
+            m.copy_(m_new)
+            v.copy_(v_new)
+        return params, AdamWState(state.m, state.v, count), {"lr": lr, "grad_norm": gnorm}
     triples = [upd(p, g, m, v) for (_, p), g, m, v in zip(p_flat, *others)]
     new_p = unflatten(treedef, [t[0] for t in triples])
     new_m = unflatten(treedef, [t[1] for t in triples])
     new_v = unflatten(treedef, [t[2] for t in triples])
-    if isinstance(params, nn.Module):
-        for (_, p), t in zip(p_flat, triples):
-            p.copy_(t[0])
-        new_p = params
     return new_p, AdamWState(new_m, new_v, count), {"lr": lr, "grad_norm": gnorm}

@@ -12,11 +12,11 @@ the step runs eagerly, so there is nothing to jit. Features:
     feedback).
 
 ``params`` is a pytree of tensors or an ``nn.Module``. A module's
-parameters are updated in place; its grads and moments are dicts keyed by
-parameter name. A module that defines ``reference_tree(named)`` and
-``from_reference_tree(tree)`` (``SparseEncoder``) is checkpointed in the
-reference's param layout, so a checkpoint either package wrote restores in
-the other.
+parameters and moments are updated in place; its grads and moments are
+dicts keyed by parameter name. A module that defines
+``reference_tree(named)`` and ``from_reference_tree(tree)`` (the sparse
+encoder, the LM, GNN and recsys models) is checkpointed in the reference's
+param layout, so a checkpoint either package wrote restores in the other.
 """
 from __future__ import annotations
 

@@ -80,3 +80,41 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
         if len(other) != len(flat):
             raise ValueError("pytrees differ in structure")
     return unflatten(treedef, [fn(leaf, *xs) for (_, leaf), *xs in zip(flat, *others)])
+
+
+def nest_names(named: dict) -> Any:
+    """Dotted names to a nest: ``{"a.0.w": x, "b": y}`` ->
+    ``{"a": [{"w": x}], "b": y}``; a level whose parts are all numbers is a
+    list in their order."""
+    root: dict = {}
+    for name, value in named.items():
+        node = root
+        *parents, last = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[k]) for k in sorted(node, key=int)]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def dotted_names(tree, prefix: str = "") -> dict:
+    """The inverse of ``nest_names``: a nest of dicts and lists -> dotted
+    name -> leaf."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out: dict = {}
+    for key, value in items:
+        nested = isinstance(value, (dict, list, tuple))
+        out.update(dotted_names(value, f"{prefix}{key}." if nested else f"{prefix}{key}"))
+    return out

@@ -68,7 +68,7 @@ def _assert_trees_equal(got, want):
     assert [k for k, _ in a] == [k for k, _ in b]
     for (k, x), (_, y) in zip(a, b):
         assert x.dtype == y.dtype and tuple(x.shape) == tuple(y.shape), k
-        np.testing.assert_array_equal(_np(x), _np(y), err_msg=k)
+        np.testing.assert_array_equal(_bits(x), _bits(y), err_msg=k)
 
 
 def _same_array(got, want):
@@ -292,3 +292,103 @@ def test_port_checkpoint_of_an_encoder_restores_in_both(tmp_path, encoder_run):
         abstract_ref)
     assert int(ref_restored.step) == 3
     jax.tree.map(_same_array, state.to_tree().params, ref_restored.params)
+
+
+# --------------------------------------------------------------------------
+# bf16 train states across the two packages
+# --------------------------------------------------------------------------
+
+
+def _bf16_lm_state():
+    """A granite-style (MoE) LM at smoke size in bf16, after one step: bf16
+    params, f32 moments, and the port's config."""
+    import dataclasses
+
+    from repro_torch.archs import transformer
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import lm_token_batches
+
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m").smoke_config(),
+                              dtype=torch.bfloat16)
+    model = transformer.init_lm_params(torch.Generator().manual_seed(1), cfg, device="cpu")
+    step = make_train_step(lambda m, b: transformer.lm_loss(m, b["tokens"], b["labels"], cfg),
+                           AdamWConfig(lr=1e-2, warmup_steps=1))
+    state, _ = step(init_train_state(model), next(lm_token_batches(cfg.vocab, 2, 16, seed=1,
+                                                                   device="cpu")))
+    return cfg, state
+
+
+def _to_jax(x):
+    """A port tensor as the reference's array, bf16 bit for bit (ml_dtypes
+    is the reference's dependency, not the port's)."""
+    import ml_dtypes
+
+    x = x.detach()
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
+    return jnp.asarray(x.numpy())
+
+
+def _bits(x):
+    """A leaf's bits as an unsigned array: 2-byte leaves (bf16, |V2) as uint16."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().view(torch.int16) if x.dtype == torch.bfloat16 else x
+    a = _np(x)
+    return a.view(np.uint16) if a.dtype.itemsize == 2 else a
+
+
+def test_bf16_train_state_crosses_between_the_packages(tmp_path):
+    """A bf16 ``TrainState`` written by the port restores in the reference
+    bit for bit, and one written by the reference restores in the port; both
+    write the same manifest (dtype ``"bfloat16"``) and npz records (``|V2``).
+    The reference's own ``restore`` has no cast from ``|V2`` to its
+    bfloat16, so its abstract state names those leaves ``|V2`` and the test
+    views the records as bfloat16."""
+    cfg, state = _bf16_lm_state()
+    tree = state.to_tree()
+    bf16 = [k for k, x in _flatten(tree) if x.dtype == torch.bfloat16]
+    assert bf16 and all("params" in k for k in bf16)
+    CheckpointManager(str(tmp_path / "port"), async_writes=False).save(1, state, {"by": "port"})
+    ref_state = ref_train.TrainState(
+        params=jax.tree.map(_to_jax, tree.params),
+        opt=ref_train.AdamWState(*(jax.tree.map(_to_jax, t) for t in tree.opt)),
+        step=_to_jax(tree.step))
+    RefCheckpointManager(str(tmp_path / "ref"), async_writes=False).save(1, ref_state,
+                                                                         {"by": "port"})
+    d_port, d_ref = tmp_path / "port" / "step_000000001", tmp_path / "ref" / "step_000000001"
+    m_port = json.loads((d_port / "manifest.json").read_text())
+    assert m_port == json.loads((d_ref / "manifest.json").read_text())
+    assert {leaf["path"] for leaf in m_port["leaves"] if leaf["dtype"] == "bfloat16"} == set(bf16)
+    with np.load(d_port / "shard_000.npz") as a, np.load(d_ref / "shard_000.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for name in a.files:
+            assert a[name].dtype == b[name].dtype
+            np.testing.assert_array_equal(_bits(a[name]), _bits(b[name]))
+
+    # the reference restores the port's checkpoint
+    abstract_ref = jax.tree.map(
+        lambda x: np.empty(x.shape, "V2") if x.dtype == jnp.bfloat16
+        else jax.ShapeDtypeStruct(x.shape, x.dtype), ref_state)
+    restored_ref, meta = RefCheckpointManager(str(tmp_path / "port"),
+                                              async_writes=False).restore(abstract_ref)
+    assert meta == {"by": "port"}
+    for (k, want), got in zip(_flatten(tree), jax.tree.leaves(restored_ref)):
+        np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=k)
+
+    # the port restores the reference's checkpoint
+    from repro_torch.archs import transformer
+
+    abstract = abstract_train_state(transformer.abstract_lm_params(cfg))
+    restored, meta = CheckpointManager(str(tmp_path / "ref"), async_writes=False).restore(
+        abstract, device="cpu")
+    assert meta == {"by": "port"} and isinstance(restored.params, transformer.Transformer)
+    _assert_trees_equal(restored.to_tree(), tree)
+    for (n, a), (_, b) in zip(restored.params.named_parameters(),
+                              state.params.named_parameters()):
+        assert a.dtype == b.dtype and torch.equal(a, b), n  # the MoE router is f32
+
+
+def _flatten(tree):
+    from repro_torch.train.tree import flatten_with_paths
+
+    return flatten_with_paths(tree)[0]

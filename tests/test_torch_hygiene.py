@@ -17,8 +17,10 @@
   ``serving/pod.py`` and ``distributed/sharding.py``, and of the trainable
   encoder's modules (``archs/layers.py``, ``archs/transformer.py``,
   ``models/sparse_encoder.py``, ``train/*``, ``data/pipeline.py``,
-  ``checkpoint/manager.py``), the port's counterpart has too, but for the
-  names of modules not yet ported (``NOT_YET_PORTED``); the kernels'
+  ``checkpoint/manager.py``), and of the model families and their registry
+  (``archs/{embedding,gnn,recsys}.py``, ``configs/*``, ``data/graphs.py``,
+  ``launch/train.py``), the port's counterpart has too, but for the names
+  of modules not yet ported (``NOT_YET_PORTED``); the kernels'
   ``ops`` and ``ref`` modules still import by ``from ... import ops`` after
   the package re-exports the wrappers.
 """
@@ -94,7 +96,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "repro_torch.models.sparse_encoder", "repro_torch.train.losses",
         "repro_torch.train.optim", "repro_torch.train.trainer", "repro_torch.train.tree",
         "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
-        "repro_torch.launch.train_encoder",
+        "repro_torch.launch.train_encoder", "repro_torch.archs.embedding",
+        "repro_torch.archs.gnn", "repro_torch.archs.recsys", "repro_torch.configs",
+        "repro_torch.configs.base", "repro_torch.configs.lm_archs",
+        "repro_torch.configs.gnn_archs", "repro_torch.configs.recsys_archs",
+        "repro_torch.data.graphs", "repro_torch.launch.train",
     }
     assert expected <= set(report["modules"])
 
@@ -294,9 +300,8 @@ def test_serve_cli_raises_without_a_gpu():
 
 # Names the reference exports (or defines in a module the defines check
 # reads) whose modules the port has not ported yet, with their queue item
-# (ROADMAP.md, queue A): the rest of ``repro.distributed``; the recsys and
-# GNN batches and ``shard_batch`` of ``repro.data.pipeline``; the MoE layer
-# and the KV cache, prefill and decode of the transformer.
+# (ROADMAP.md, queue A): the sharding half of A12, the rest of
+# ``repro.distributed`` and ``shard_batch`` of ``repro.data.pipeline``.
 NOT_YET_PORTED = {
     name: "A12" for name in (
         "collectives", "elastic", "CompressionConfig", "compress_decompress",
@@ -305,10 +310,7 @@ NOT_YET_PORTED = {
         "data_parallel_liveness", "reshard_state", "act", "ambient_axis_size",
         "batch_dim_sharding", "batch_shardings", "cache_shardings", "constraint",
         "current_axes", "fully_sharded_dim", "normalize_path", "param_shardings",
-        "param_specs", "spec_for_path", "train_state_shardings",
-        "recsys_batches", "gnn_batches", "shard_batch",
-        "MoEConfig", "moe", "moe_params", "CacheSpec", "init_cache", "abstract_cache",
-        "lm_decode_step", "lm_prefill", "decode_step_model_flops", "abstract_lm_params",
+        "param_specs", "spec_for_path", "train_state_shardings", "shard_batch",
     )
 }
 KERNEL_PACKAGES = ("block_prune", "block_prune_csr", "block_topk", "chunk_step",
@@ -329,7 +331,7 @@ def _init_exports(package: str) -> set:
 
 
 @pytest.mark.parametrize("package", ["metrics", "kernels", "core", "serving", "distributed",
-                                     "train", "checkpoint"])
+                                     "train", "checkpoint", "configs", "data"])
 def test_port_packages_export_what_the_reference_exports(package):
     port = importlib.import_module(f"repro_torch.{package}")
     want = _init_exports(f"repro.{package}")
@@ -357,9 +359,15 @@ SHARDED_MODULES = ("serving.sharded", "serving.pod", "distributed.sharding")
 ENCODER_MODULES = ("archs.layers", "archs.transformer", "models.sparse_encoder",
                    "train.losses", "train.optim", "train.trainer", "data.pipeline",
                    "checkpoint.manager")
+# The model families, their registry and the arch CLI (the first half of
+# queue A12).
+ARCH_MODULES = ("archs.embedding", "archs.gnn", "archs.recsys", "configs", "configs.base",
+                "configs.lm_archs", "configs.gnn_archs", "configs.recsys_archs", "data.graphs",
+                "launch.train")
 
 
-@pytest.mark.parametrize("module", REF_MODULES + SHARDED_MODULES + ENCODER_MODULES)
+@pytest.mark.parametrize("module", REF_MODULES + SHARDED_MODULES + ENCODER_MODULES
+                         + ARCH_MODULES)
 def test_port_modules_define_what_the_reference_defines(module):
     ref = importlib.import_module(f"repro.{module}")
     port = importlib.import_module(f"repro_torch.{module}")

@@ -14,6 +14,7 @@ Inputs are made with numpy from a seed and fed to both packages. Tolerances:
 * the pipeline: array-equal, same dtypes.
 """
 import itertools
+import json
 import os
 import subprocess
 import sys
@@ -354,5 +355,46 @@ def test_train_encoder_cli_raises_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     out = _train_encoder("--steps", "1")
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr and out.stdout == ""
+
+
+# --------------------------------------------------------------------------
+# the arch CLI (launch/train.py)
+# --------------------------------------------------------------------------
+
+
+def _train(*extra):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *extra],
+                          capture_output=True, text=True, env=env, timeout=300)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "graphcast", "dcn-v2"])
+def test_train_cli_runs_and_resumes_on_the_cpu(arch, tmp_path):
+    """Three steps of an arch of each family (an MoE LM, the GNN, a recsys
+    model) with a checkpoint at the end, then two more resumed from it: the
+    reference's log, the step count carried across, ``keep=2``."""
+    out = _train("--device", "cpu", "--arch", arch, "--steps", "3", "--ckpt-dir", str(tmp_path))
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    assert [line.split(":")[0] for line in lines[:3]] == ["step 0", "step 1", "step 2"]
+    metrics = [json.loads(line.split(": ", 1)[1]) for line in lines[:3]]
+    assert all(np.isfinite(m["loss"]) and m["grad_norm"] > 0 for m in metrics)
+    assert lines[3].startswith("done: 3 steps in ")
+    assert sorted(os.listdir(tmp_path)) == ["step_000000003"]
+    out = _train("--device", "cpu", "--arch", arch, "--steps", "2", "--ckpt-dir", str(tmp_path),
+                 "--resume")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.splitlines()[0].startswith("resumed from step 3 ({'final': True})")
+    assert sorted(os.listdir(tmp_path)) == ["step_000000003", "step_000000005"]
+    manifest = json.loads((tmp_path / "step_000000005" / "manifest.json").read_text())
+    assert manifest["step"] == 5 and manifest["meta"] == {"final": True}
+
+
+def test_train_cli_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    out = _train("--arch", "dcn-v2", "--steps", "1")
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr and out.stdout == ""
