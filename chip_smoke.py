@@ -89,7 +89,22 @@ It needs one CUDA card and exits non-zero without one. In order:
    rows with its full tables, ``retrieve_topk`` of dcn-v2 and sasrec over
    1,000,448 candidates against a full sort, and gemma3-1b's prefill of
    2,048 tokens and 32 decode steps against the full forward (f32), timed
-   in bf16 at B = 2 and 32;
+   in bf16 at B = 2 and 32; then the sharding half of the distribution
+   layer (``sharding_phase``, plain PyTorch): the dry-run's plan of every
+   cell at both production meshes (72 plans, 8 skipped cells, one line
+   each under the H100's peaks), gemma3-1b's train state at its published
+   widths placed in process on a (data 2, model 4) mesh (each rank's bytes
+   what ``train_state_shardings`` gives, reassembled bit for bit), copied
+   to the host and placed again by ``reshard_state`` on
+   ``best_effort_mesh``'s mesh for this machine's devices (bit for bit),
+   three steps with ``make_error_feedback_transform`` as the trainer's
+   ``grad_transform`` against three without (every leaf's compression
+   error within half a quantization step), ``compressed_psum`` and
+   ``reduce_scatter_grads`` at 4 ranks in process on gemma3-1b-sized
+   gradients (the int8 bound; the rank-ordered sum's slices bit for bit),
+   the three collectives over an NCCL process group of one rank (equal to
+   the in-process path at one rank; liveness 1), and ``shard_batch`` of a
+   train batch;
 9. the dense ``block_prune`` on its oracle path: at the reference's
    contract shapes and its edges (the engine's widths at B = 63 and 1, an
    Lq of several rounds of loads, one block) against its plain version at
@@ -204,9 +219,11 @@ from repro_torch.data.pipeline import (  # noqa: E402
     gnn_batches,
     lm_token_batches,
     recsys_batches,
+    shard_batch,
 )
 from repro_torch.data.synthetic import CorpusConfig, generate_corpus  # noqa: E402
-from repro_torch.distributed import make_mesh  # noqa: E402
+from repro_torch.distributed import collectives, elastic, make_mesh  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.block_prune import ops as dense_prune_ops  # noqa: E402
 from repro_torch.kernels.block_prune import ref as dense_prune_ref  # noqa: E402
@@ -222,6 +239,7 @@ from repro_torch.kernels.impact_scatter_topk import ops as fused_ops  # noqa: E4
 from repro_torch.kernels.impact_scatter_topk import ref as fused_ref  # noqa: E402
 from repro_torch.kernels.sparse_score import ops as score_ops  # noqa: E402
 from repro_torch.kernels.sparse_score import ref as score_ref  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import train_encoder  # noqa: E402
 from repro_torch.launch.serve import _mutation_schedule  # noqa: E402
@@ -269,7 +287,7 @@ from repro_torch.train import (  # noqa: E402
     make_train_step,
     train_loop,
 )
-from repro_torch.train.tree import flatten_with_paths  # noqa: E402
+from repro_torch.train.tree import flatten_with_paths, tree_map  # noqa: E402
 
 # MS MARCO passage v1 holds 8,841,823 passages; one shard of 32.
 N_DOCS = 276_307
@@ -1139,17 +1157,24 @@ def profile_call(label, fn) -> None:
         fn()
         sync()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    avgs = prof.key_averages()
-    kernels = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
-                 key=lambda e: e.self_device_time_total, reverse=True)
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    # self device time and count by (device type, name), as key_averages()
+    # groups them, summed directly: key_averages() keeps every statistic of
+    # every event and took seconds of host time a step on a model's profile
+    sums: dict = {}
+    for e in prof.events():
+        acc = sums.setdefault((e.device_type, e.key), [0.0, 0])
+        acc[0] += e.self_device_time_total
+        acc[1] += 1
+    kernels = sorted(((t, n, key) for (dt, key), (t, n) in sums.items() if dt == DeviceType.CUDA),
+                     key=lambda r: r[0], reverse=True)
+    ops = sorted(((t, n, key) for (dt, key), (t, n) in sums.items()
+                  if dt == DeviceType.CPU and t > 0), key=lambda r: r[0], reverse=True)
+    busy_us = sum(t for t, _, _ in kernels)
     print(f"profile {label}: profiled wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%)")
-    for what, events in (("operator", ops), ("kernel", kernels)):
-        for e in events[:8]:
-            print(f"  {what} {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key[:80]}")
+    for what, rows in (("operator", ops), ("kernel", kernels)):
+        for t, n, key in rows[:8]:
+            print(f"  {what} {t / 1e3:8.3f} ms x{n:<4d} {key[:80]}")
 
 
 def profile_batch(index, bt, bw, k, rho) -> None:
@@ -3523,6 +3548,242 @@ def arch_phase(device) -> None:
     print(f"arch phase seconds: {json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})}")
 
 
+# The sharding half: gemma3-1b's train state at its published widths placed
+# in process on a (data, model) mesh; the recovery topology; the error-
+# feedback steps (batch, sequence) against as many plain ones; the ranks of
+# the in-process collectives
+SHARD_STATE_MESH = (2, 4)
+RECOVERY_TOPOLOGY = elastic.MeshTopology(pods=1, data=2, model=4)
+EF_STEPS, EF_BATCH = 3, (2, 512)
+EF_ERR_SLACK = 1e-4  # the f32 rounding of x / s and q * s, relative to a step
+COLLECTIVE_RANKS = 4
+COLLECTIVE_LEAVES = ("embed", "layers.0.mlp.w_up", "layers.0.attn.wq", "layers.0.ln_attn.scale")
+DRYRUN_CELLS = (72, 8)  # (plans, skipped) at both production meshes
+
+
+def placed_check(placed, values, shardings, what) -> str:
+    """Every rank's bytes what ``shardings`` give; the blocks reassembled on
+    the card equal ``values`` bit for bit. Returns the line's bytes."""
+    want = shd.nbytes(values, shardings)
+    got = [sum(b.numel() * b.element_size() for _, b in flatten_with_paths(tree)[0])
+           for tree in placed]
+    check(all(n == want for n in got),
+          f"{what}: a rank's bytes {got} differ from train_state_shardings' {want}")
+    again = shd.assemble_tree(placed, shardings)
+    flat_a, flat_v = flatten_with_paths(again)[0], flatten_with_paths(values)[0]
+    check([k for k, _ in flat_a] == [k for k, _ in flat_v]
+          and all(a.dtype == v.dtype and torch.equal(a, v.to(a.device))
+                  for (_, a), (_, v) in zip(flat_a, flat_v)),
+          f"{what}: the reassembled blocks differ from the state")
+    total = sum(v.numel() * v.element_size() for _, v in flat_v)
+    return (f"{len(placed)} ranks, {want / 2**30:.3f} GiB a rank of {total / 2**30:.3f} GiB; "
+            f"reassembled bit for bit")
+
+
+def error_feedback_run(state, loss_fn, batches, compress, residual) -> tuple:
+    """``EF_STEPS`` steps with the error-feedback transform as the trainer's
+    ``grad_transform``; each leaf's compression error (the new residual)
+    checked within half a quantization step of its block. Returns (state,
+    losses, ms a step of the compression)."""
+    holder, ms = {"res": residual}, []
+
+    def transform(grads):
+        sync()
+        t0 = time.perf_counter()
+        sent, new_res = compress(grads, holder["res"])
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        for name, g in grads.items():
+            corrected = g.float() + holder["res"][name]
+            _, scale = collectives.quantize_int8(corrected)
+            step = scale.repeat_interleave(collectives.CompressionConfig().block)[
+                :corrected.numel()].reshape(corrected.shape)
+            check(bool((new_res[name].abs() <= 0.5 * step * (1 + EF_ERR_SLACK)).all()),
+                  f"error feedback: {name}'s compression error is over half a step")
+        holder["res"] = new_res
+        return sent
+
+    step = make_train_step(loss_fn, AdamWConfig(warmup_steps=1), grad_transform=transform)
+    state, hist = train_loop(step, state, batches)
+    return state, [h["loss"] for h in hist], ms
+
+
+def collectives_in_process(grads, card) -> None:
+    """``compressed_psum`` and ``reduce_scatter_grads`` at
+    ``COLLECTIVE_RANKS`` ranks in process: the compressed sum within its int8
+    bound of the exact (f64) sum, each rank's reduce-scatter slice the
+    rank-ordered sum's, bit for bit."""
+    for name, ranks in grads.items():
+        sync()
+        t0 = time.perf_counter()
+        out = collectives.compressed_psum(ranks)
+        sync()
+        t_psum = 1e3 * (time.perf_counter() - t0)
+        exact = torch.stack(ranks).double().sum(0)
+        _, s_max = collectives.quantize_int8(torch.stack(ranks).abs().amax(0))
+        bound = COLLECTIVE_RANKS * s_max.double().repeat_interleave(
+            collectives.CompressionConfig().block)[:exact.numel()]
+        err = (out[0].double() - exact).abs().reshape(-1)
+        check(all(o is out[0] for o in out) and bool((err <= bound * (1 + EF_ERR_SLACK)).all()),
+              f"compressed_psum of {name}: over its int8 bound of the exact sum")
+        del exact, bound, err
+        t0 = time.perf_counter()
+        slices = collectives.reduce_scatter_grads([{name: g} for g in ranks])
+        sync()
+        t_rs = 1e3 * (time.perf_counter() - t0)
+        total = ranks[0]
+        for g in ranks[1:]:
+            total = total + g
+        check(all(torch.equal(sl[name], part) for sl, part in
+                  zip(slices, torch.chunk(total, COLLECTIVE_RANKS))),
+              f"reduce_scatter_grads of {name}: a slice differs from the rank-ordered sum's")
+        print(f"collectives in process, {COLLECTIVE_RANKS} ranks, {name} "
+              f"{tuple(ranks[0].shape)} f32: compressed_psum {t_psum:.2f} ms (max error "
+              f"{float((out[0] - sum(ranks)).abs().max()):.3g}), reduce_scatter_grads "
+              f"{t_rs:.2f} ms (host clock, synchronized; {card})")
+
+
+def collectives_nccl(grads, device) -> str:
+    """The three collectives over an NCCL process group of one rank (a
+    FileStore under build/): each equal to the in-process path at one rank;
+    the liveness count 1. Returns the backend's name."""
+    store = Path(__file__).resolve().parent / "build" / f"nccl_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+                            timeout=timedelta(seconds=120))
+    try:
+        group = dist.group.WORLD
+        mesh = make_mesh((1, 1), ("data", "model"), device=device)
+        for name, x in grads.items():
+            check(torch.equal(collectives.compressed_psum(x, group),
+                              collectives.compressed_psum([x])[0]),
+                  f"NCCL: compressed_psum of {name} differs from the in-process path")
+        tree = dict(grads)
+        got = collectives.reduce_scatter_grads(tree, group)
+        want = collectives.reduce_scatter_grads([tree])[0]
+        check(all(torch.equal(got[k], want[k]) for k in tree),
+              "NCCL: reduce_scatter_grads differs from the in-process path")
+        live = elastic.data_parallel_liveness(mesh, group=group)
+        check(int(live) == 1 == int(elastic.data_parallel_liveness(mesh)),
+              f"NCCL: data_parallel_liveness is {int(live)}, not 1")
+        return dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def sharding_phase(device, card) -> None:
+    """The sharding half of the distribution layer (plain PyTorch: it
+    launches no kernel of the port; the counters are set to 0 before and
+    read after)."""
+    clock = PhaseClock()
+    reset_launches()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as out:
+        records = dryrun.main(["--all", "--mesh", "both", "--device", str(device), "--out", out])
+    counts = (sum(r["status"] == "ok" for r in records),
+              sum(r["status"] == "skipped" for r in records))
+    check(counts == DRYRUN_CELLS and len(records) == sum(DRYRUN_CELLS),
+          f"dry-run: {counts} (ok, skipped) cells, not {DRYRUN_CELLS}")
+    print(f"dry-run: {counts[0]} plans, {counts[1]} skipped cells; terms under the NVIDIA H100 "
+          f"80GB HBM3 (SXM) peaks, {dryrun.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16 and "
+          f"{dryrun.HBM_BW / 1e12:.2f} TB/s a device (spec sheet, not measured)")
+    clock.end("dry-run")
+
+    spec = ARCHS["gemma3-1b"]
+    cfg = spec.config_for("train_4k")
+    loss_fn = train_cli._make_loss(spec, cfg)
+    base = init_train_state(init_lm_params(torch.Generator(device=device).manual_seed(0), cfg,
+                                           device))
+    batches = list(itertools.islice(lm_token_batches(cfg.vocab, *EF_BATCH, seed=3, device=device),
+                                    EF_STEPS))
+    state = copy.deepcopy(base)
+    plain, plain_hist = train_loop(make_train_step(loss_fn, AdamWConfig(warmup_steps=1)), base,
+                                   batches)
+    plain_losses = [h["loss"] for h in plain_hist]
+    del plain, base
+    compress, init_res = collectives.make_error_feedback_transform()
+    state, ef_losses, ef_ms = error_feedback_run(state, loss_fn, batches, compress,
+                                                 init_res(state.params))
+    check(all(np.isfinite(plain_losses + ef_losses)), "error feedback: a loss is not finite")
+    # step 0 runs the same params on the same batch: equal but for a reduction's order
+    check(abs(ef_losses[0] - plain_losses[0]) <= 1e-6 * abs(plain_losses[0]),
+          f"error feedback: step 0's loss {ef_losses[0]} differs from {plain_losses[0]}")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    print(f"gemma3-1b full width ({n_params:,} params, bf16; f32 moments), {EF_STEPS} steps at "
+          f"B = {EF_BATCH[0]} x {EF_BATCH[1]} tokens: losses with error feedback "
+          f"{[round(x, 4) for x in ef_losses]}, without {[round(x, 4) for x in plain_losses]}; "
+          f"every leaf's compression error within half a quantization step; the compression "
+          f"{np.median(ef_ms):.1f} ms a step (median, host clock, synchronized; {card})")
+    clock.end("error feedback")
+
+    values = dataclasses.replace(state, params=dict(state.params.named_parameters()))
+    mesh = make_mesh(SHARD_STATE_MESH, ("data", "model"), device=device)
+    shardings = shd.train_state_shardings(state, "lm", mesh)
+    sync()
+    t0 = time.perf_counter()
+    placed = shd.place_tree(values, shardings)
+    sync()
+    t_place = time.perf_counter() - t0
+    print(f"gemma3-1b train state on a (data {SHARD_STATE_MESH[0]}, model {SHARD_STATE_MESH[1]}) "
+          f"mesh in process: {placed_check(placed, values, shardings, 'state on the mesh')}; "
+          f"placed in {t_place:.2f} s ({card})")
+    del placed
+    clock.end("state on the mesh")
+
+    # the host's copy, placed again on the recovered mesh, is held against
+    # the state on the card: a round trip card -> host -> mesh
+    t0 = time.perf_counter()
+    host = dataclasses.replace(state, params=copy.deepcopy(state.params).cpu(),
+                               opt=tree_map(lambda t: t.cpu(), state.opt), step=state.step.cpu())
+    t_host = time.perf_counter() - t0
+    recovered = elastic.best_effort_mesh(RECOVERY_TOPOLOGY, device=device)
+    sync()
+    t0 = time.perf_counter()
+    placed = elastic.reshard_state(host, "lm", recovered)
+    sync()
+    t_reshard = time.perf_counter() - t0
+    line = placed_check(placed, values, shd.train_state_shardings(host, "lm", recovered),
+                        "recovery")
+    print(f"recovery: best_effort_mesh({RECOVERY_TOPOLOGY}) with {torch.cuda.device_count()} "
+          f"visible device(s) -> {recovered.shape}; reshard_state from the host: {line}; copy "
+          f"to the host {t_host:.2f} s, reshard {t_reshard:.2f} s ({card})")
+    named = {name: tuple(p.shape) for name, p in state.params.named_parameters()}
+    del placed, host, state, values
+    free_memory("after the recovery")
+    clock.end("recovery")
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    grads = {name: [torch.randn(named[name], generator=gen, device=device) * (1 + r)
+                    for r in range(COLLECTIVE_RANKS)] for name in COLLECTIVE_LEAVES}
+    collectives_in_process(grads, card)
+    backend = collectives_nccl({name: ranks[0] for name, ranks in grads.items()}, device)
+    print(f"collectives over a {backend} world of one: compressed_psum, reduce_scatter_grads "
+          f"and data_parallel_liveness (1) equal to the in-process path")
+    del grads
+    clock.end("collectives")
+
+    dims = spec.cells["train_4k"].dims
+    batch = next(lm_token_batches(cfg.vocab, dims["global_batch"], dims["seq_len"], seed=4,
+                                  device="cpu"))
+    t0 = time.perf_counter()
+    placed = shard_batch(batch, mesh)
+    sync()
+    t_batch = time.perf_counter() - t0
+    line = placed_check(placed, batch, shd.batch_shardings(batch, mesh), "shard_batch")
+    print(f"shard_batch of gemma3-1b's train_4k batch {tuple(batch['tokens'].shape)} on the "
+          f"{SHARD_STATE_MESH} mesh: {line}; {1e3 * t_batch:.1f} ms ({card})")
+    del placed
+    free_memory("after the sharding half")
+    clock.end("shard_batch")
+    launches = read_launches()
+    print(f"sharding phase launches: {launches} (plain PyTorch: no kernel of the port on this "
+          f"path)")
+    print(f"sharding phase seconds: {json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})}")
+
+
 class PhaseClock:
     """Seconds of each phase, printed as each ends."""
 
@@ -3634,8 +3895,10 @@ def run(args, device) -> None:
     encoder_phase(corpus, device)
     phase.end("encoder")
     arch_phase(device)
-    torch.cuda.reset_peak_memory_stats()
     phase.end("model families")
+    sharding_phase(device, card)
+    torch.cuda.reset_peak_memory_stats()
+    phase.end("sharding half")
 
     # the dense prune's oracle path, then serving on the spladev2 shard
     dense_rows, dense_launches = dense_prune_phase(index, qt[:BATCH], qw[:BATCH], device, args.seed)

@@ -30,6 +30,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import ambient_axis_size
 from repro_torch.train.tree import nest_names
 
 # --------------------------------------------------------------------------
@@ -393,10 +394,13 @@ def _combine_one_group(out_e: torch.Tensor, route, Tg: int, D: int, dtype) -> to
     return y.reshape(Tg, -1, D).sum(dim=1)
 
 
-def moe(params, x: torch.Tensor, cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe(params, x: torch.Tensor, cfg: MoEConfig,
+        token_axis: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
     """Grouped top-k MoE (GShard dispatch). Tokens are split into ``G``
-    groups (``cfg.n_groups``; 0 means one group on one card, and a ``T``
-    that ``G`` does not divide falls back to one group); each group sorts
+    groups (``cfg.n_groups``; 0 means one group a rank of ``token_axis``
+    under the ambient mesh, ``repro_torch.distributed.sharding.use_mesh``,
+    and one group outside a mesh; a ``T`` that ``G`` does not divide falls
+    back to one group); each group sorts
     and scatters its tokens into its ``[E, C, D]`` capacity slice, with
     ``C = round_up(max(int(Tg * K / E * capacity_factor), 1), 8)``, and
     tokens past an expert's capacity are dropped. Returns (output,
@@ -407,7 +411,7 @@ def moe(params, x: torch.Tensor, cfg: MoEConfig) -> tuple[torch.Tensor, torch.Te
     xt = x.reshape(T, D)
     logits = xt.float() @ params["router"]  # [T, E]
 
-    G = cfg.n_groups or 1
+    G = cfg.n_groups or max(ambient_axis_size(token_axis), 1)
     if T % G != 0:
         G = 1
     Tg = T // G
@@ -459,8 +463,9 @@ class MoE(nn.Module):
                            "w_down": self.shared.w_down}
         return p
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return moe(self.params(), x, self.cfg)
+    def forward(self, x: torch.Tensor,
+                token_axis: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
+        return moe(self.params(), x, self.cfg, token_axis)
 
 
 # --------------------------------------------------------------------------

@@ -259,9 +259,9 @@ def lm_params_to_reference(named: dict, cfg: LMConfig, prefix: str = "") -> dict
 # --------------------------------------------------------------------------
 
 
-def _ffn(block: Block, h, cfg: LMConfig):
+def _ffn(block: Block, h, cfg: LMConfig, token_axis: str):
     if cfg.moe is not None:
-        return block.moe(h)
+        return block.moe(h, token_axis)
     return block.mlp(h), torch.zeros((), device=h.device)
 
 
@@ -272,7 +272,7 @@ def _block_body(block: Block, x, cfg: LMConfig, window, positions):
                                           cfg.rope_theta, cfg.attn_chunk)
     x = x + attn_out
     h = block.ln_ffn(x)
-    ffn_out, aux = _ffn(block, h, cfg)
+    ffn_out, aux = _ffn(block, h, cfg, "all" if cfg.dp_layout else "data")
     return x + ffn_out, aux, kv
 
 
@@ -446,7 +446,7 @@ def lm_decode_step(model: Transformer, cache: dict, tokens: torch.Tensor, pos: t
         out = layers._attention_dense(q, entry["k"], entry["v"], positions, entry["pos"], dims,
                                       cfg.layer_window(i))
         x = x + out.reshape(B, 1, dims.n_heads * dims.d_head) @ block.attn.wo
-        ffn_out, _ = _ffn(block, block.ln_ffn(x), cfg)
+        ffn_out, _ = _ffn(block, block.ln_ffn(x), cfg, "all")
         x = x + ffn_out
     h = model.ln_out(x)
     logits = (h[:, 0, :] @ _unembed(model, cfg)).float()

@@ -6,8 +6,8 @@ reference's order from the same seed, that yield tensors on the given
 device (``cuda`` unless ``device="cpu"``). The encoder's triples come from
 the concept-latent corpus (``repro_torch.data.synthetic``), so ranking
 quality is learned, not scripted. All batch shapes are static; ``batches``
-iterators are infinite. ``shard_batch`` (a batch placed on a mesh's
-shardings) is not ported yet.
+iterators are infinite. ``shard_batch`` places a batch on a mesh's
+shardings.
 """
 from __future__ import annotations
 
@@ -154,3 +154,15 @@ def gnn_batches(cfg, n_nodes: int, n_edges: int, seed: int = 0, graph_readout_gr
         else:
             b["targets"] = torch.as_tensor(node_targets, device=dev)
         yield b
+
+
+def shard_batch(batch, mesh, shardings=None, group=None):
+    """Place a host batch on the mesh's batch shardings (``batch_shardings``
+    unless given): the list of every rank's batch of its blocks on the
+    mesh's device, or this rank's over ``group``
+    (``repro_torch.distributed.sharding.place_tree``)."""
+    from repro_torch.distributed.sharding import batch_shardings, place_tree
+
+    if shardings is None:
+        shardings = batch_shardings(batch, mesh)
+    return place_tree(batch, shardings, group)

@@ -59,7 +59,7 @@ from repro_torch.core.impact_index import (
 )
 from repro_torch.core.saat import saat_search
 from repro_torch.core.topk import canonical_topk_merge, gather_ranks, merge_topk
-from repro_torch.distributed.sharding import Mesh, mesh_axes
+from repro_torch.distributed.sharding import Mesh, block, mesh_axes
 from repro_torch.serving.bucketing import bucketize_batch, normalize_buckets
 
 NEG_INF = float("-inf")
@@ -234,21 +234,6 @@ def abstract_stacked_index(
 # --------------------------------------------------------------------------
 
 
-def _rank_position(mesh: Mesh, axes: Sequence[str], rank: int) -> tuple[int, int]:
-    """``(position, count)`` of flat rank ``rank`` along ``axes`` (major to
-    minor): the block of an operand split over ``axes`` that it holds."""
-    order = mesh_axes(mesh).all
-    sizes = mesh.shape
-    coord, rest = {}, int(rank)
-    for name in reversed(order):
-        rest, coord[name] = divmod(rest, sizes[name])
-    pos, count = 0, 1
-    for name in axes:
-        pos = pos * sizes[name] + coord[name]
-        count *= sizes[name]
-    return pos, count
-
-
 def _rows(x, pos: int, count: int):
     """Block ``pos`` of ``count`` equal blocks of ``x``'s leading axis."""
     n = x.shape[0]
@@ -264,16 +249,14 @@ def rank_block(x, spec, mesh: Mesh, rank: int):
     hands that rank's body, and what a collective-path ``serve`` takes.
 
     ``x`` is a stacked :class:`ImpactIndex` (``spec``: the per-field dict)
-    or an array or tensor (``spec``: a tuple whose first entry names the
-    axes the leading dimension is split over, or ``None``).
+    or an array or tensor (``spec``: a tuple of the axes each leading dim is
+    split over, or ``None``; ``repro_torch.distributed.sharding.block``).
     """
     if isinstance(x, ImpactIndex):
         return dataclasses.replace(
             x, **{f: rank_block(getattr(x, f), spec[f], mesh, rank) for f in ARRAY_FIELDS}
         )
-    if not spec or spec[0] is None:
-        return x
-    return _rows(x, *_rank_position(mesh, spec[0], rank))
+    return block(x, spec, mesh, rank)
 
 
 # --------------------------------------------------------------------------
