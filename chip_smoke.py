@@ -8,7 +8,8 @@ It needs one CUDA card and exits non-zero without one. In order:
 1. builds every CUDA kernel from ``src/repro_torch/csrc`` (``nvcc``, sm_90a,
    one process per source, all at once) and prints the build time and the
    compiler's register report;
-2. kernel phases at the reference's contract shapes: each kernel, and each
+2. kernel phases at the contract shapes (each kernel package's ``CONTRACT``:
+   the reference's cases and the port's edges): each kernel, and each
    single-query (B=1) wrapper, held against its plain PyTorch version run
    on a host copy of its inputs; both scatter kernels bit for bit at their
    edges (an empty block, a range over three shared-memory stages, a block
@@ -47,13 +48,26 @@ It needs one CUDA card and exits non-zero without one. In order:
    and sort timed against each other at k_blk = 10, 32 and 64;
    ``block_prune_csr`` at B = 64, 63 and 1 of the batch, and its tiles swept
    at B = 64;
-5. the SAAT path: after one warm-up batch per configuration, serves the
+5. the static analysis (``repro_torch.analysis`` on the card,
+   ``analysis_phase``): every kernel package's ``CONTRACT`` at each of its
+   cases, each launched, the wrapper under the CUDA sync debug mode's
+   "error"; every Python launch plan equal to its source's C
+   ``<launcher>_plan``; ptxas's registers and static shared memory per
+   kernel against the plans; the SASS's ``LDGSTS`` exactly where a contract
+   expects async copies, each with a ``DEPBAR`` after it; the serving lint
+   (the eight server configs, the handle across a compaction, the sharded
+   step at (1, 1) and the pod step at (2, 2)), each route's host reads held
+   to its budget and equal to the sync debug mode's count; then the lint
+   once per route on the 64-query batch (SAAT fused and kernel at 1M and
+   exact, DAAT split, fused and 8 trips a launch), reads equal to each
+   budget; zero violations, or the run fails;
+6. the SAAT path: after one warm-up batch per configuration, serves the
    256 queries in batches of 64 through ``saat_search`` with the fused
    kernel and with the scatter kernel, at k=10 for rho in {100k, 1M,
    exact} and at k=1000 for rho=1M, and holds every result against the
    plain ``"sort"`` mode on the card (and ``exhaustive_search`` at exact
    rho); prints RR@10, batch latencies and a profiled batch;
-6. the DAAT path: the same batches through ``daat_search_batched`` in the
+7. the DAAT path: the same batches through ``daat_search_batched`` in the
    plain, split (``use_kernels``), fused (``fused_chunk``) and multi-trip
    (``trips_per_launch=8``) modes at (k=10, exact), (k=10, approximate)
    and (k=1000, exact), and one batch under the tombstone bitmap; the
@@ -61,12 +75,12 @@ It needs one CUDA card and exits non-zero without one. In order:
    with equal ``WorkStats`` (but at near-ties, printed), and exact results
    must be rank-safe and match ``exhaustive_search``; prints the work
    counts, batch latencies, host syncs and a profiled batch;
-7. the weight analysis (``core/wacky.py``): ``full_report`` of both
+8. the weight analysis (``core/wacky.py``): ``full_report`` of both
    shards over every query at k = 10, one line each, its bounds (one
    ``block_prune_csr`` launch a shard) equal bit for bit to
    ``block_upper_bounds``; then ``frontier_table`` (``core/pareto.py``) of
    the SAAT rho levels and DAAT modes measured above;
-8. the trainable encoder (``encoder_phase``), in f32 with TF32 off: at
+9. the trainable encoder (``encoder_phase``), in f32 with TF32 off: at
    ``tests/test_e2e.py``'s size, both heads on the card against the CPU from
    the same params and batches (the encoding, with each side's distance
    from an f64 run on the host, step 0's loss and gradients, 5 steps'
@@ -75,7 +89,8 @@ It needs one CUDA card and exits non-zero without one. In order:
    and their share of the f32 peak, peak memory, the loss), 2,048 docs
    encoded to postings, and a checkpoint of the train state written and
    restored bit for bit; then ``launch/train_encoder.py``'s ``main`` at the
-   example's settings (train, encode, index, SAAT against BM25) and its
+   example's settings but 150 of its 300 steps (train, encode, index, SAAT
+   against BM25) and its
    learned index's queries through ``impact_scatter_topk`` and
    ``impact_scatter`` against the plain sort mode; then the model families
    (``arch_phase``, plain PyTorch): every arch of ``repro_torch.configs``
@@ -105,7 +120,7 @@ It needs one CUDA card and exits non-zero without one. In order:
    the three collectives over an NCCL process group of one rank (equal to
    the in-process path at one rank; liveness 1), and ``shard_batch`` of a
    train batch;
-9. the dense ``block_prune`` on its oracle path: at the reference's
+10. the dense ``block_prune`` on its oracle path: at the reference's
    contract shapes and its edges (the engine's widths at B = 63 and 1, an
    Lq of several rounds of loads, one block) against its plain version at
    every tile, then on one 64-query
@@ -113,7 +128,7 @@ It needs one CUDA card and exits non-zero without one. In order:
    the batch's DAAT k-th scores, ub equal bit for bit to ``block_prune_csr``
    and to the plain version; timed beside the plain version and
    ``torch.bmm``, hot and cold, with its tile swept at B = 64 and 1;
-10. serving on the ``spladev2`` shard: ``AnytimeServer`` directly (SAAT,
+11. serving on the ``spladev2`` shard: ``AnytimeServer`` directly (SAAT,
    fused kernel, the CLI's rho ladder, a deadline under the top level's
    calibrated cost, every batch equal to ``saat_search`` at the rho served,
    the ``--eval-qrels`` sweep); through the admission queue on a
@@ -123,7 +138,7 @@ It needs one CUDA card and exits non-zero without one. In order:
    ``IndexHandle`` under ``replay_with_churn`` with one compaction (answers
    equal across it, every merged id live and rescored); and
    ``saat_search_vmap`` with the kernel scatter;
-11. doc-sharded serving: the ``spladev2`` corpus re-sharded 4 ways with
+12. doc-sharded serving: the ``spladev2`` corpus re-sharded 4 ways with
    ``shard_corpus`` and stacked on the card; the pod step at (pod = 2,
    model = 2) and the sharded step at (1, 1) with all 4 shards on one
    rank, SAAT through both scatter kernels and DAAT fused, against the
@@ -134,7 +149,7 @@ It needs one CUDA card and exits non-zero without one. In order:
    its rho; then, printed, the pod step's latency, each shard's engine time
    (SAAT at 250k and exact, DAAT with its trips), RR@10 at 4 x 250k and
    the merge's time;
-12. the single-query wrappers (B = 1) of the scatter, fused top-k, block
+13. the single-query wrappers (B = 1) of the scatter, fused top-k, block
    top-k and scoring kernels, each called once on a query of the batch.
 
 Each path runs with the launch counters set to 0 just before and read just
@@ -147,9 +162,11 @@ Any mismatch raises, so the run exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import copy
 import dataclasses
 import gc
+import importlib
 import itertools
 import json
 import os
@@ -167,6 +184,19 @@ import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.analysis import check as analysis_check  # noqa: E402
+from repro_torch.analysis.hot_path import (  # noqa: E402
+    daat_budget,
+    lint_route,
+    saat_budget,
+)
+from repro_torch.analysis.kernel_contracts import (  # noqa: E402
+    REGISTERS_PER_SM,
+    all_contracts,
+    c_launch_plan,
+    python_launch_plan,
+)
+from repro_torch.analysis.op_trace import find_kernel_calls  # noqa: E402
 from repro_torch.archs import layers as arch_layers  # noqa: E402
 from repro_torch.archs.gnn import (  # noqa: E402
     abstract_gnn_params,
@@ -304,116 +334,39 @@ SCATTER_RHOS = (1_000_000, 100_000)  # B2's main shapes, beside B = 64 and 1
 # of the rule's switch (the edge phases hold k_blk 1 and 16 bit for bit)
 SELECT_SWEEP_KS = (10, 32, 64)
 
-# The reference kernels' CONTRACT.shape_grid (src/repro/kernels/*/ops.py),
-# copied: this script imports nothing of the JAX package.
-SCATTER_CASES = (
-    ("single_tile", dict(n_postings=128, n_docs=512, block_d=256, tile_p=128)),
-    ("ragged", dict(n_postings=1000, n_docs=1000, block_d=256, tile_p=128)),
-    ("multi_tile", dict(n_postings=4096, n_docs=512, block_d=256, tile_p=128)),
-    ("b1", dict(batch=1, n_postings=128, n_docs=700, block_d=256, tile_p=128)),
-    ("b3_ragged", dict(batch=3, n_postings=1000, n_docs=700, block_d=256, tile_p=128)),
-    ("b8", dict(batch=8, n_postings=1000, n_docs=700, block_d=256, tile_p=128)),
-)
-TOPK_CASES = (
-    ("k1", dict(n_postings=128, n_docs=512, k=1, block_d=256, tile_p=128)),
-    ("k10_ragged", dict(n_postings=1000, n_docs=1000, k=10, block_d=256, tile_p=128)),
-    ("k300", dict(n_postings=4096, n_docs=512, k=300, block_d=256, tile_p=128)),
-    ("live_ragged", dict(n_postings=1000, n_docs=1000, k=10, block_d=256, tile_p=128, live=1)),
-    ("b1", dict(batch=1, n_postings=1000, n_docs=700, k=13, block_d=256, tile_p=128)),
-    ("b3_ragged", dict(batch=3, n_postings=1000, n_docs=700, k=13, block_d=256, tile_p=128)),
-    ("b8", dict(batch=8, n_postings=1000, n_docs=700, k=13, block_d=256, tile_p=128)),
-    ("b3_live", dict(batch=3, n_postings=1000, n_docs=700, k=13, block_d=256, tile_p=128, live=1)),
-)
+# The kernels' shapes, read from each kernel package's CONTRACT (its
+# reference cases, port=False, and the port's own edges, port=True), the
+# one source of shapes of these phases and of repro_torch.analysis.
+SCATTER_CASES = scatter_ops.CONTRACT.cases(port=False)
+TOPK_CASES = fused_ops.CONTRACT.cases(port=False)
 # The scatter kernels at their edges (scatter_edge_inputs): 8 blocks of 512,
 # the last ragged; k_blk on both sides of fused_ops.SELECT_MAX_K and at block_d.
-SCATTER_EDGE = dict(batch=3, n_docs=4000, block_d=512, tile_p=512, empty=2, long=5, dead=6)
-SCATTER_EDGE_KS = (1, 10, 16, 32, 33, 512)
-PRUNE_CASES = (
-    ("b1", dict(batch=1, lq=8, nb=100, m=16, n_bm=800)),
-    ("b4_wide", dict(batch=4, lq=32, nb=2048, m=64, n_bm=12000)),
-    ("b3_tiny", dict(batch=3, lq=5, nb=17, m=3, n_bm=40)),
-    ("b2_single_slot", dict(batch=2, lq=1, nb=64, m=8, n_bm=100)),
-)
+SCATTER_EDGE = dict(scatter_ops.CONTRACT.cases(port=True))["edge"]
+SCATTER_EDGE_KS = tuple(fused_ops.CONTRACT.sweep_values("k", require=("empty",)))
+PRUNE_CASES = prune_ops.CONTRACT.cases(port=False)
 # block_prune_csr at its edges (prune_inputs): lists holding the blocks on
 # both sides of every boundary of 32-block tiles (so of every swept tile),
 # the engine's widths (Lq 35, 2,159 blocks) at B = 1, 63 and 64, NB not a
 # multiple of the tile, a window cut at the end of the lists, all pad
 # slots, one block; each at every tile of the sweep and the wrapper's.
-PRUNE_EDGE_CASES = (
-    ("edges_b64_lq35_nb2159", dict(batch=64, lq=35, nb=2159, m=900, n_bm=40000, edge_tile=32)),
-    ("edges_b63_lq35_nb2159", dict(batch=63, lq=35, nb=2159, m=900, n_bm=40000, edge_tile=32)),
-    ("edges_b1_lq35_nb2159", dict(batch=1, lq=35, nb=2159, m=900, n_bm=40000, edge_tile=32)),
-    ("ragged_b3_lq9_nb300", dict(batch=3, lq=9, nb=300, m=60, n_bm=1200, edge_tile=32)),
-    ("cut_at_end_b2_lq5", dict(batch=2, lq=5, nb=200, m=30, n_bm=400, cut=1)),
-    ("all_pad_b4_lq8", dict(batch=4, lq=8, nb=2159, m=100, n_bm=2000, empty=1.0)),
-    ("one_block_b2", dict(batch=2, lq=3, nb=1, m=1, n_bm=10)),
-)
+PRUNE_EDGE_CASES = prune_ops.CONTRACT.cases(port=True)
 PRUNE_SWEEP_TILES = (32, 64, 128, 256, 512, 1024, 2048)  # blocks a CTA
-BTOPK_CASES = (
-    ("ragged", dict(n=1000, k=10, tile=256)),
-    ("aligned", dict(n=8192, k=100, tile=1024)),
-    ("k_is_n", dict(n=100, k=100, tile=128)),
-    ("wide_tile", dict(n=5000, k=7, tile=512)),
-    ("b1", dict(batch=1, n=1000, k=10, tile=256)),
-    ("b3_ragged", dict(batch=3, n=517, k=7, tile=128)),
-    ("b8_k_is_n", dict(batch=8, n=100, k=100, tile=128)),
-)
+BTOPK_CASES = btopk_ops.CONTRACT.cases(port=False)
 # block_topk at its edges: the engine's [64, 2159] bounds fully tied, with
 # every k it uses and k = 1; a row of all -inf; widths that are not a
 # multiple of 32; k past n; B = 1.
-BTOPK_EDGE_CASES = (
-    ("tied_b64_n2159_k1", dict(batch=64, n=2159, k=1, tile=8192)),
-    ("tied_b64_n2159_k8", dict(batch=64, n=2159, k=8, tile=8192)),
-    ("tied_b64_n2159_k16", dict(batch=64, n=2159, k=16, tile=8192)),
-    ("neginf_rows_b4_n2159_k16", dict(batch=4, n=2159, k=16, tile=8192, neg_inf_rows=2)),
-    ("ragged_b5_n45_k7", dict(batch=5, n=45, k=7, tile=8192)),
-    ("ragged_b3_n1001_k1000", dict(batch=3, n=1001, k=1000, tile=8192)),
-    ("k_past_n_b2_n45_k60", dict(batch=2, n=45, k=60, tile=8192)),
-    ("b1_n2159_k16", dict(n=2159, k=16, tile=8192)),
-)
-SCORE_CASES = (
-    ("small", dict(n=100, tmax=16, lq=8)),
-    ("aligned", dict(n=512, tmax=64, lq=32)),
-    ("ragged", dict(n=130, tmax=7, lq=3)),
-    ("b1", dict(batch=1, n=100, tmax=16, lq=8)),
-    ("b3_ragged", dict(batch=3, n=130, tmax=7, lq=3)),
-    ("b4_aligned", dict(batch=4, n=512, tmax=64, lq=32)),
-)
+BTOPK_EDGE_CASES = btopk_ops.CONTRACT.cases(port=True)
+SCORE_CASES = score_ops.CONTRACT.cases(port=False)
 # sparse_score's store-addressed entry at its edges (store_inputs): the split
-# trip's widths (16 blocks of 128 a query, Tmax 650, Lq 35) on a small store.
+# trip's widths (16 blocks of 128 a query, Tmax 650, Lq 35) on a small store
+# whose last 45 docs are pad docs. (Its plain version takes about 20 s on one
+# CPU thread, so the contract holds a smaller store case.)
 STORE_EDGE = dict(n_blocks=24, block_size=128, tmax=650, vocab=3000, batch=64, lq=35, nb=16)
-_CHUNK = dict(n_docs=220, block_size=32, lq=6)
-_CHUNK24 = dict(n_docs=130, block_size=24, lq=4)
-CHUNK_CASES = (
-    tuple((f"b{B}_budget{budget}_k{k}", dict(_CHUNK, B=B, budget=budget, k=k))
-          for B in (1, 3) for budget in (1, 3, 7) for k in (1, 5))
-    + (("ragged_bs24", dict(_CHUNK24, B=2, budget=5, k=3)),)
-    + tuple((f"multi_b{B}_trips{trips}_budget{budget}", dict(_CHUNK, B=B, trips=trips,
-                                                             budget=budget, k=5))
-            for B, trips, budget in ((1, 1, 3), (3, 3, 7), (2, 4, 2)))
-    + (("multi_ragged_bs24", dict(_CHUNK24, B=2, trips=2, budget=5, k=3)),
-       ("live_b2_budget3", dict(_CHUNK, B=2, budget=3, k=5, live=1)),
-       ("multi_live_b2_trips3", dict(_CHUNK, B=2, trips=3, budget=3, k=5, live=1)))
-)
-
-# The dense block_prune contract (src/repro/kernels/block_prune/ops.py),
-# copied; the kernel tiles the block axis itself (no block_nb).
-DENSE_PRUNE_CASES = (
-    ("narrow", dict(lq=8, nb=100)),
-    ("wide", dict(lq=32, nb=2048)),
-    ("tiny_ragged", dict(lq=5, nb=17)),
-    ("b1", dict(batch=1, lq=8, nb=100)),
-    ("b4_wide", dict(batch=4, lq=32, nb=2048)),
-    ("b3_tiny", dict(batch=3, lq=5, nb=17)),
-)
+CHUNK_CASES = chunk_ops.CONTRACT.cases()
+DENSE_PRUNE_CASES = dense_prune_ops.CONTRACT.cases(port=False)
 # B8 at its edges: the engine's widths at B = 63 and 1, an Lq of several
-# rounds of loads (300 slots; a thread loads 40 at a time), one block.
-DENSE_PRUNE_EDGE_CASES = (
-    ("engine_b63", dict(batch=63, lq=35, nb=2159)),
-    ("engine_b1", dict(batch=1, lq=35, nb=2159)),
-    ("lq_past_a_round", dict(batch=2, lq=300, nb=97)),
-    ("one_block", dict(batch=2, lq=3, nb=1)),
-)
+# rounds of loads (300 slots), one block.
+DENSE_PRUNE_EDGE_CASES = dense_prune_ops.CONTRACT.cases(port=True)
 
 # Serving at the defaults of the serving CLI (src/repro_torch/launch/serve.py):
 # the rho ladder (capped at exact by the server), Lq buckets covering the
@@ -794,6 +747,7 @@ def scatter_edge_inputs(seed, device):
     blocks = docs // bd
     check(not (blocks == e["empty"]).any() and bool(((blocks == e["long"]).sum(axis=1) > 3 * stage).all()),
           "scatter edge inputs: a block is not empty or a range does not span three stages")
+    check(docs.shape[1] == e["n_postings"], "scatter edge inputs: not the contract's width")
     return (torch.as_tensor(docs, dtype=torch.int32, device=device),
             torch.as_tensor(contribs, device=device),
             torch.as_tensor(live, dtype=torch.int32, device=device))
@@ -3045,13 +2999,18 @@ def encoder_full_width(corpus, device) -> None:
     del state, model
 
 
+# Steps of the example's loop (300 in the example): half, for the run's
+# time budget; the loop's checks do not depend on its depth.
+ENC_LOOP_STEPS = 150
+
+
 def encoder_loop(device) -> None:
-    """``launch/train_encoder.py``'s ``main`` at the example's settings, then
-    its learned index's queries through SAAT's B1 (fused) and B2 (kernel)
-    routes against the plain sort mode, with the counters set to 0 just
-    before and read just after."""
+    """``launch/train_encoder.py``'s ``main`` at the example's settings but
+    ``ENC_LOOP_STEPS`` steps, then its learned index's queries through
+    SAAT's B1 (fused) and B2 (kernel) routes against the plain sort mode,
+    with the counters set to 0 just before and read just after."""
     t0 = time.perf_counter()
-    report = train_encoder.main(["--device", str(device)])
+    report = train_encoder.main(["--device", str(device), "--steps", str(ENC_LOOP_STEPS)])
     t_main = time.perf_counter() - t0
     hist = report["history"]
     check(all(np.isfinite(h["loss"]) for h in hist), "encoder loop: a loss is not finite")
@@ -3784,6 +3743,219 @@ def sharding_phase(device, card) -> None:
     print(f"sharding phase seconds: {json.dumps({k: round(v, 1) for k, v in clock.seconds.items()})}")
 
 
+# ---------------------------------------------------------------------------
+# the static analysis on the card
+# ---------------------------------------------------------------------------
+
+
+def mangled_fragment(function: str) -> str:
+    """The Itanium-mangled name (length-prefixed, with int/bool template
+    arguments) of a ``name<args>`` kernel instance, as it appears in the
+    ptxas report and the SASS of the build."""
+    name, _, args = function.partition("<")
+    out = f"{len(name)}{name}"
+    if args:
+        parts = []
+        for a in args.rstrip(">").split(","):
+            a = a.strip()
+            parts.append(f"Lb{int(a == 'true')}E" if a in ("true", "false") else f"Li{a}E")
+        out += "I" + "".join(parts) + "E"
+    return out
+
+
+def ptxas_report(logs: dict) -> dict:
+    """``{kernel: {mangled function: (registers, static smem bytes)}}`` from
+    the builds' ``-Xptxas -v`` output."""
+    out = {}
+    for kernel, log in logs.items():
+        fns, current = {}, None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                current = line.split("'")[1]
+            elif current and "Used" in line and "registers" in line:
+                regs = int(line.split("Used")[1].split("registers")[0])
+                smem = 0
+                for part in line.split(","):
+                    if part.strip().endswith("bytes smem"):
+                        smem = int(part.split()[0])
+                fns[current] = (regs, smem)
+                current = None
+        out[kernel] = fns
+    return out
+
+
+def cuobjdump() -> str:
+    """The toolkit's ``cuobjdump``, or Triton's copy; raises if neither."""
+    cands = [Path(common._nvcc()).parent / "cuobjdump"]
+    try:
+        import triton
+
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(f"no cuobjdump (looked at {[str(c) for c in cands]}): cannot read the SASS")
+
+
+def sass_copies(text: str) -> dict:
+    """``{mangled function: (LDGSTS issued, a DEPBAR/LDGDEPBAR after the first)}``
+    of a built library's SASS (``cuobjdump -sass``)."""
+    out, fn, seen_copy, waited = {}, None, False, False
+    for line in text.splitlines() + ["Function : <end>"]:
+        if "Function :" in line:
+            if fn is not None:
+                out[fn] = (seen_copy, waited)
+            fn, seen_copy, waited = line.split("Function :")[1].strip(), False, False
+        elif "LDGSTS" in line:
+            seen_copy = True
+        elif seen_copy and "DEPBAR" in line:
+            waited = True
+    return out
+
+
+def main_shape_lint(index, qt, qw) -> None:
+    """The hot-path lint once per route on one 64-query batch at the main
+    shapes: SAAT fused and scatter kernel at rho = 1M and exact, DAAT split,
+    fused and 8 trips a launch, exact. Every route's reads must equal its
+    budget, the recorder's count the sync debug mode's."""
+    ms, mb = max_segments_per_term(index), max_blocks_per_term(index)
+    routes = [(f"saat {name} rho={rho}", lambda qt, qw, kw=kw, rho=r: saat_search(
+                   index, qt, qw, k=SERVE_K, rho=rho, max_segs_per_term=ms, **kw),
+               saat_budget(int(r >= index.n_postings)))
+              for name, kw in (("fused", dict(fused_topk=True)), ("kernel",
+                                                                  dict(scatter_impl="kernel")))
+              for rho, r in (("1M", 1_000_000), ("exact", index.n_postings))]
+    for mode, flags in DAAT_MODES[1:]:
+        routes.append((f"daat {mode} exact", lambda qt, qw, flags=flags: daat_search_batched(
+            index, qt, qw, k=SERVE_K, exact=True, max_bm_per_term=mb, **DAAT_KW, **flags),
+            daat_budget(True, flags.get("trips_per_launch", 1))))
+    bad = []
+    for label, fn, budget in routes:
+        vs, trace = lint_route(fn, (qt, qw), label, f"B={qt.shape[0]}", budget)
+        check(trace is not None, f"main-shape lint {label}: {vs}")
+        n, allowed = len(trace.reads()), budget.allowed(trace)
+        launches = {}
+        for op in find_kernel_calls(trace):
+            launches[op.name[7:]] = launches.get(op.name[7:], 0) + 1
+        print(f"  main-shape lint {label}: host reads a batch {n} (budget {allowed}: "
+              f"{budget.rule}), sync debug {trace.sync_warnings}; kernel launches {launches}; "
+              f"{len(trace.ops)} ops; {len(vs)} violations")
+        bad += vs
+        if n != allowed:
+            bad.append(f"{label}: {n} host reads against a budget of {allowed}")
+    check(not bad, "main-shape lint: " + "; ".join(str(v) for v in bad))
+
+
+def plan_checks(contracts, ptxas, n_sms) -> dict:
+    """Every contract case's plans: the Python plan equal to the source's C
+    plan, the declared static shared memory at least ptxas's, registers x
+    threads within an SM's. Returns ``{function: its row}``: registers,
+    static bytes, the largest dynamic shared memory over the contract."""
+    rows, n_plans = {}, 0
+    for name, contract in contracts.items():
+        for case in contract.shape_grid:
+            for plan in contract.plan(case.dims, n_sms):
+                n_plans += 1
+                got, want = c_launch_plan(plan), python_launch_plan(plan)
+                check(got == want, f"{name} {case.name}: the C plan {got} is not the Python plan "
+                                   f"{want}")
+                frag = mangled_fragment(plan.function)
+                hits = [v for f, v in ptxas[plan.kernel].items() if frag in f]
+                check(len(hits) == 1, f"{plan.function}: {len(hits)} ptxas entries match {frag}")
+                regs, static = hits[0]
+                declared = sum(b for _, b in plan.static_smem)
+                check(declared >= static, f"{plan.function}: {declared} B of static shared memory "
+                                          f"declared, ptxas reports {static}")
+                check(regs * plan.threads <= REGISTERS_PER_SM,
+                      f"{plan.function}: {regs} registers x {plan.threads} threads")
+                row = rows.setdefault(plan.function, dict(
+                    kernel=plan.kernel, registers=regs, static=static, declared=declared,
+                    max_dynamic=0, threads=set()))
+                row["max_dynamic"] = max(row["max_dynamic"], sum(b for _, b in plan.smem))
+                row["threads"].add(plan.threads)
+    print(f"  {n_plans} launch plans: the Python plan equal to the C plan at every case")
+    return rows
+
+
+def sass_checks(contracts, dumps, rows) -> None:
+    """The SASS of every kernel of a library: LDGSTS exactly where its
+    contract expects async copies, each followed by a DEPBAR; then a line a
+    function launched at the contract's cases."""
+    sass = {}
+    for k, (proc, out) in dumps.items():
+        check(proc.wait(timeout=120) == 0, f"cuobjdump -sass of {k} failed")
+        out.seek(0)
+        sass[k] = sass_copies(out.read().decode())
+    for name, contract in contracts.items():
+        for fn, (copies, waited) in sass[contract.source or name].items():
+            check(copies == contract.expect_async_copy,
+                  f"{name}: SASS of {fn} {'has' if copies else 'has no'} LDGSTS, the contract "
+                  f"expects {contract.expect_async_copy}")
+            check(waited or not copies, f"{name}: SASS of {fn} has no DEPBAR after its LDGSTS")
+    for fn, row in sorted(rows.items()):
+        copies = any(c for f, (c, _) in sass[row["kernel"]].items() if mangled_fragment(fn) in f)
+        print(f"  ptxas {fn}: {row['registers']} registers, {row['static']} B static shared "
+              f"memory (declared {row['declared']}), up to {row['max_dynamic']} B dynamic over "
+              f"the contract, threads {sorted(row['threads'])}; SASS LDGSTS "
+              f"{'yes' if copies else 'no'}")
+
+
+def start_sass_dumps() -> dict:
+    """``cuobjdump -sass`` of every built library, each into a file, started
+    (niced) right after the build so that they run beside the phases before
+    the analysis reads them; any still running at exit is stopped."""
+    tool = cuobjdump()
+    dumps = {}
+    for k in common.kernel_names():
+        out = tempfile.TemporaryFile()
+        dumps[k] = (subprocess.Popen(["nice", "-n", "10", tool, "-sass", str(common._lib_path(k))],
+                                     stdout=out), out)
+    atexit.register(stop_sass_dumps, dumps)
+    return dumps
+
+
+def stop_sass_dumps(dumps) -> None:
+    for proc, out in dumps.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+
+
+def analysis_phase(index, qt, qw, device, dumps) -> None:
+    """``repro_torch.analysis`` on the card: every contract at its cases
+    (each launched, wrappers under the sync debug mode's "error"), every
+    plan against its C plan and the ptxas report (:func:`plan_checks`), the
+    SASS (:func:`sass_checks`, of ``dumps``: :func:`start_sass_dumps`), the serving lint
+    (every route held to its host-read budget, the recorder against the
+    sync debug mode) and the lint at the main shapes. Any violation fails
+    the run."""
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
+    contracts = all_contracts()
+    violations = analysis_check.run_kernel_checks(device=device)
+    rows = plan_checks(contracts, ptxas_report(common.build_kernels()),
+                       common.sm_count(device.index or 0))
+    lap("contracts and plans")
+    violations += analysis_check.run_serving_checks(device=device)
+    violations += analysis_check.run_daat_phase0_checks(device)
+    check(not violations, "analysis: " + "; ".join(str(v) for v in violations))
+    lap("serving")
+    sass_checks(contracts, dumps, rows)
+    stop_sass_dumps(dumps)
+    lap("SASS")
+    main_shape_lint(index, qt, qw)
+    lap("main shapes")
+    print(f"analysis phase: 0 violations in {time.perf_counter() - t0:.1f} s "
+          f"({json.dumps({k: round(v, 1) for k, v in seconds.items()})})")
+
+
 class PhaseClock:
     """Seconds of each phase, printed as each ends."""
 
@@ -3811,6 +3983,12 @@ def run(args, device) -> None:
     t0 = time.perf_counter()
     logs = common.build_kernels()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    dumps = start_sass_dumps()
+    # The analysis phase records ops under a TorchDispatchMode, whose first
+    # dispatch imports torch._dynamo (9 s on the card's host): import it here.
+    t0 = time.perf_counter()
+    importlib.import_module("torch._dynamo")
+    print(f"torch._dynamo import (the op recorder's): {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line:
@@ -3831,6 +4009,8 @@ def run(args, device) -> None:
     rows = main_shape_phases(index, qt[:BATCH], qw[:BATCH], live)
     rows.update(daat_main_shape_phases(index, qt[:BATCH], qw[:BATCH], live))
     phase.end("kernels at the main shapes")
+    analysis_phase(index, qt[:BATCH], qw[:BATCH], device, dumps)
+    phase.end("analysis")
     torch.cuda.reset_peak_memory_stats()  # the peak below is the paths', not the graph timings'
 
     # the SAAT path

@@ -40,6 +40,8 @@
 // scripts/ab_scatter_prune.py on an NVIDIA H100 80GB HBM3, 700.00 W.
 #include <cuda_runtime.h>
 
+#include "launch_plan.cuh"
+
 namespace {
 
 constexpr int SLAB = 8192;  // block maxima a CTA holds at once (32 KB)
@@ -90,17 +92,30 @@ block_prune_kernel(const float* __restrict__ bm, const float* __restrict__ qw,
   }
 }
 
+repro_torch::LaunchPlan plan(int B, int lq, int nb, int tile) {
+  const int slots = min(lq, SLAB / tile);
+  return {dim3((nb + tile - 1) / tile, B), tile, 1,
+          (static_cast<size_t>(slots) * tile + slots) * sizeof(float)};
+}
+
 template <int TILE>
 int launch(const float* bm, const float* qw, const float* theta, float* ub,
            unsigned char* survive, int B, int lq, int nb, cudaStream_t stream) {
-  const int slots = min(lq, SLAB / TILE);
-  const size_t smem = (static_cast<size_t>(slots) * TILE + slots) * sizeof(float);
-  const dim3 grid((nb + TILE - 1) / TILE, B);
-  block_prune_kernel<TILE><<<grid, TILE, smem, stream>>>(bm, qw, theta, ub, survive, lq, nb);
+  const repro_torch::LaunchPlan p = plan(B, lq, nb, TILE);
+  block_prune_kernel<TILE><<<p.grid, p.threads, p.smem, stream>>>(bm, qw, theta, ub, survive, lq,
+                                                                   nb);
   return static_cast<int>(cudaGetLastError());
 }
 
+bool valid_tile(int tile) { return tile == 32 || tile == 64 || tile == 128 || tile == 256; }
+
 }  // namespace
+
+// The launch shape of block_prune_launch for the same ints.
+extern "C" int block_prune_plan(int B, int lq, int nb, int tile, int* out) {
+  if (!valid_tile(tile)) return static_cast<int>(cudaErrorInvalidValue);
+  return repro_torch::write_plan(plan(B, lq, nb, tile), out);
+}
 
 // bm f32[B, lq, nb], qw f32[B, lq], theta f32[B] -> ub f32[B, nb],
 // survive bool[B, nb]; tile (blocks a CTA) one of 32, 64, 128, 256;

@@ -54,6 +54,8 @@
 // entries) and the launch.
 #include <cuda_runtime.h>
 
+#include "launch_plan.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -200,6 +202,11 @@ block_prune_csr_kernel(const int* __restrict__ bm_block, const float* __restrict
   }
 }
 
+repro_torch::LaunchPlan plan(int B, int n_blocks, int tile, int group) {
+  return {dim3((n_blocks + tile - 1) / tile, B), THREADS, 1,
+          sizeof(float) * (static_cast<size_t>(group) * tile + tile + 4 * group + 1)};
+}
+
 }  // namespace
 
 // bm_block i32[n_bm] (distinct ids in [0, n_blocks), ascending within each
@@ -208,20 +215,24 @@ block_prune_csr_kernel(const int* __restrict__ bm_block, const float* __restrict
 // f32[B] -> ub f32[B, n_blocks], survive bool[B, n_blocks]. tile blocks a
 // CTA, group slots a round (ops.py: prune_csr_layout); smem =
 // 4 * (group * tile + tile + 4 * group + 1).
+extern "C" int block_prune_csr_plan(int B, int n_bm, int lq, int n_blocks, int tile, int group,
+                                    int* out) {
+  return repro_torch::write_plan(plan(B, n_blocks, tile, group), out);
+}
+
 extern "C" int block_prune_csr_launch(const void* bm_block, const void* bm_weight,
                                       const void* base, const void* cnt, const void* qw,
                                       const void* theta, void* ub, void* survive, int B,
                                       int n_bm, int lq, int n_blocks, int tile, int group,
                                       void* stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(group) * tile + tile + 4 * group + 1);
-  if (smem > 48 * 1024) {
+  const repro_torch::LaunchPlan p = plan(B, n_blocks, tile, group);
+  if (p.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         block_prune_csr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(p.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((n_blocks + tile - 1) / tile, B);
-  block_prune_csr_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  block_prune_csr_kernel<<<p.grid, p.threads, p.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(bm_block), static_cast<const float*>(bm_weight),
       static_cast<const int*>(base), static_cast<const int*>(cnt),
       static_cast<const float*>(qw), static_cast<const float*>(theta),

@@ -30,6 +30,7 @@
 // per thread. At [64, 2159], k = 16: 0.014 ms a launch replayed from a CUDA
 // graph, against 0.027 for torch.topk replayed the same way (chip_smoke.py,
 // NVIDIA H100 80GB HBM3, 700.00 W).
+#include "launch_plan.cuh"
 #include "select_common.cuh"
 
 namespace {
@@ -53,6 +54,10 @@ block_topk_kernel(const float* __restrict__ scores, float* __restrict__ out_s,
       });
 }
 
+repro_torch::LaunchPlan plan(int B, int n, int tile, int threads, int smem) {
+  return {dim3(n / tile, B), threads, 1, static_cast<size_t>(smem)};
+}
+
 }  // namespace
 
 // scores f32[B, n] with n % tile == 0 -> out_s f32[B, n / tile, k],
@@ -60,14 +65,19 @@ block_topk_kernel(const float* __restrict__ scores, float* __restrict__ out_s,
 // 1024; list_len = min(k, 32 * ceil(tile / threads)); smem =
 // 8 * (threads / 32) * list_len + 4 * tile bytes within the block's shared
 // memory.
+extern "C" int block_topk_plan(int B, int n, int tile, int k, int threads, int list_len,
+                               int smem, int* out) {
+  return repro_torch::write_plan(plan(B, n, tile, threads, smem), out);
+}
+
 extern "C" int block_topk_launch(const void* scores, void* out_s, void* out_i, int B, int n,
                                  int tile, int k, int threads, int list_len, int smem,
                                  void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       block_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n / tile, B);
-  block_topk_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const repro_torch::LaunchPlan p = plan(B, n, tile, threads, smem);
+  block_topk_kernel<<<p.grid, p.threads, p.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(scores), static_cast<float*>(out_s), static_cast<int*>(out_i),
       n, tile, k, list_len);
   return static_cast<int>(cudaGetLastError());

@@ -68,6 +68,7 @@
 // it at 5x its bound is open (PERF.md).
 #include <cooperative_groups.h>
 
+#include "launch_plan.cuh"
 #include "score_common.cuh"
 #include "select_common.cuh"
 
@@ -267,6 +268,10 @@ chunk_step_kernel(const float* __restrict__ ub, const unsigned char* __restrict_
   }
 }
 
+repro_torch::LaunchPlan plan(int B, int cluster, int smem) {
+  return {dim3(B * cluster), THREADS, cluster, static_cast<size_t>(smem)};
+}
+
 int launch(const void* ub, const void* proc_in, const void* pool_s_in, const void* pool_i_in,
            const void* theta_in, const void* qt, const void* qw, const void* dt, const void* dw,
            const void* live, const void* trips_left, void* pool_s_out, void* pool_i_out,
@@ -276,14 +281,15 @@ int launch(const void* ub, const void* proc_in, const void* pool_s_in, const voi
   cudaError_t err = cudaFuncSetAttribute(chunk_step_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const repro_torch::LaunchPlan p = plan(B, cluster, smem);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * cluster);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = p.grid;
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.x = p.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -339,4 +345,17 @@ extern "C" int chunk_step_multi_launch(const void* ub, const void* proc_in,
   return launch(ub, proc_in, pool_s_in, pool_i_in, theta_in, qt, qw, dt, dw, live, trips_left,
                 pool_s_out, pool_i_out, theta_out, proc_out, trips_done, B, nb, k, lq, tmax,
                 budget, bs, n_live, trips, list_len, n_keys, cluster, smem, stream);
+}
+
+// The launch shapes of the two launchers above for the same ints.
+extern "C" int chunk_step_plan(int B, int nb, int k, int lq, int tmax, int budget, int bs,
+                               int n_live, int list_len, int n_keys, int cluster, int smem,
+                               int* out) {
+  return repro_torch::write_plan(plan(B, cluster, smem), out);
+}
+
+extern "C" int chunk_step_multi_plan(int B, int nb, int k, int lq, int tmax, int budget, int bs,
+                                     int n_live, int trips, int list_len, int n_keys, int cluster,
+                                     int smem, int* out) {
+  return repro_torch::write_plan(plan(B, cluster, smem), out);
 }

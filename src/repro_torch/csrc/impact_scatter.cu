@@ -57,6 +57,8 @@
 // 700.00 W.
 #include <cuda_runtime.h>
 
+#include "launch_plan.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -234,17 +236,30 @@ impact_scatter_kernel(const int* __restrict__ docs, const float* __restrict__ co
   wait_copies<0>();  // no copy in flight at exit
 }
 
+repro_torch::LaunchPlan plan(int B, int P, int spt, int stages) {
+  const int R = THREADS * spt;
+  const int n_ranges = (P + R - 1) / R;
+  return {dim3(max(1, (n_ranges + stages - 1) / stages), B), THREADS, 1, 0};
+}
+
 template <int SPT>
 int launch(const int* docs, const float* contribs, float* out, int B, int P, int n_docs,
            int stages, cudaStream_t stream) {
-  constexpr int R = THREADS * SPT;
-  const int n_ranges = (P + R - 1) / R;
-  const dim3 grid(max(1, (n_ranges + stages - 1) / stages), B);
-  impact_scatter_kernel<SPT><<<grid, THREADS, 0, stream>>>(docs, contribs, out, P, n_docs, stages);
+  const repro_torch::LaunchPlan p = plan(B, P, SPT, stages);
+  impact_scatter_kernel<SPT><<<p.grid, p.threads, p.smem, stream>>>(docs, contribs, out, P, n_docs,
+                                                                     stages);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// The launch shape of impact_scatter_launch for the same ints.
+extern "C" int impact_scatter_plan(int B, int P, int n_docs, int spt, int stages, int* out) {
+  if (stages < 1 || (spt != 2 && spt != 4 && spt != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return repro_torch::write_plan(plan(B, P, spt, stages), out);
+}
 
 // docs i32[B, P] (rows sorted, the sentinel n_docs on empty slots),
 // contribs f32[B, P] -> out f32[B, n_docs]. n_docs % 4 == 0, B <= 65535;

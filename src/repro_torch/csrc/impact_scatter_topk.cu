@@ -47,6 +47,7 @@
 // stage halved the time of a thread a doc) and the select against the sort
 // (the select wins up to k_blk = 32, the sort at 64: the select's k
 // rounds are serial); PERF.md has the times.
+#include "launch_plan.cuh"
 #include "scatter_common.cuh"
 #include "select_common.cuh"
 
@@ -101,6 +102,10 @@ __global__ void impact_scatter_topk_kernel(const int* __restrict__ docs,
   }
 }
 
+repro_torch::LaunchPlan plan(int B, int n_docs, int block_d, int dpt, int smem) {
+  return {dim3(n_docs / block_d, B), block_d / dpt, 1, static_cast<size_t>(smem)};
+}
+
 template <int DPT, bool kSelect>
 int launch(const void* docs, const void* contribs, const void* live, void* out_s, void* out_i,
            int B, int P, int n_docs, int n_live, int block_d, int k, int stage, int n_keys,
@@ -109,8 +114,8 @@ int launch(const void* docs, const void* contribs, const void* live, void* out_s
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_docs / block_d, B);
-  kernel<<<grid, block_d / DPT, smem, stream>>>(
+  const repro_torch::LaunchPlan p = plan(B, n_docs, block_d, DPT, smem);
+  kernel<<<p.grid, p.threads, p.smem, stream>>>(
       static_cast<const int*>(docs), static_cast<const float*>(contribs),
       static_cast<const int*>(live), static_cast<float*>(out_s), static_cast<int*>(out_i), P,
       n_docs, n_live, block_d, k, stage, n_keys, list_len);
@@ -126,6 +131,13 @@ int launch(const void* docs, const void* contribs, const void* live, void* out_s
 // staged at once. select: keep the k best by block_select_desc, with
 // n_keys = (block_d / dpt / 32) * list_len list keys, else sort n_keys =
 // block_d keys. smem as the wrapper lays it out (impact_scatter_topk_layout).
+extern "C" int impact_scatter_topk_plan(int B, int P, int n_docs, int n_live, int block_d,
+                                        int k, int dpt, int stage, int select, int n_keys,
+                                        int list_len, int smem, int* out) {
+  if (dpt != 1 && dpt != 2 && dpt != 4) return static_cast<int>(cudaErrorInvalidValue);
+  return repro_torch::write_plan(plan(B, n_docs, block_d, dpt, smem), out);
+}
+
 extern "C" int impact_scatter_topk_launch(const void* docs, const void* contribs,
                                           const void* live, void* out_s, void* out_i, int B,
                                           int P, int n_docs, int n_live, int block_d, int k,

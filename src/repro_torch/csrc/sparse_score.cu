@@ -54,6 +54,7 @@
 // NVIDIA H100 80GB HBM3, 700.00 W). In trials, loading each slot's weight
 // with its term (one round trip, twice the bytes) and loading the next
 // doc's term ids under this doc's work were both slower.
+#include "launch_plan.cuh"
 #include "score_common.cuh"
 
 namespace {
@@ -105,6 +106,10 @@ sparse_score_kernel(const int* __restrict__ dt, const float* __restrict__ dw,
   }
 }
 
+repro_torch::LaunchPlan plan(int B, int n, int docs_per_cta) {
+  return {dim3((n + docs_per_cta - 1) / docs_per_cta, B), THREADS, 1, 0};
+}
+
 }  // namespace
 
 // dt i32[B, n, tmax], dw f32[B, n, tmax], qt i32[B, lq], qw f32[B, lq]
@@ -112,8 +117,8 @@ sparse_score_kernel(const int* __restrict__ dt, const float* __restrict__ dw,
 extern "C" int sparse_score_launch(const void* dt, const void* dw, const void* qt,
                                    const void* qw, void* out, int B, int n, int tmax, int lq,
                                    int docs_per_cta, void* stream) {
-  const dim3 grid((n + docs_per_cta - 1) / docs_per_cta, B);
-  sparse_score_kernel<false><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const repro_torch::LaunchPlan p = plan(B, n, docs_per_cta);
+  sparse_score_kernel<false><<<p.grid, p.threads, p.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(dt), static_cast<const float*>(dw), static_cast<const int*>(qt),
       static_cast<const float*>(qw), nullptr, nullptr, nullptr, static_cast<float*>(out), n,
       tmax, lq, 0, 1, 0, docs_per_cta);
@@ -131,12 +136,22 @@ extern "C" int sparse_score_blocks_launch(const void* doc_terms, const void* doc
                                           int n_live, int tmax, int lq, int docs_per_cta,
                                           void* stream) {
   const int n = nb * bs;
-  const dim3 grid((n + docs_per_cta - 1) / docs_per_cta, B);
-  sparse_score_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const repro_torch::LaunchPlan p = plan(B, n, docs_per_cta);
+  sparse_score_kernel<true><<<p.grid, p.threads, p.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(doc_terms), static_cast<const float*>(doc_weights),
       static_cast<const int*>(qt), static_cast<const float*>(qw),
       static_cast<const int*>(block_ids), static_cast<const int*>(live),
       static_cast<const unsigned char*>(block_live), static_cast<float*>(out), n, tmax, lq, nb,
       bs, n_live, docs_per_cta);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shapes of the two launchers above for the same ints.
+extern "C" int sparse_score_plan(int B, int n, int tmax, int lq, int docs_per_cta, int* out) {
+  return repro_torch::write_plan(plan(B, n, docs_per_cta), out);
+}
+
+extern "C" int sparse_score_blocks_plan(int B, int nb, int bs, int n_live, int tmax, int lq,
+                                        int docs_per_cta, int* out) {
+  return repro_torch::write_plan(plan(B, nb * bs, docs_per_cta), out);
 }

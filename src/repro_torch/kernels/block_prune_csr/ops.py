@@ -12,12 +12,18 @@ index builder of the port gives that (the block-max lists come from
 ``np.unique`` over ``term * n_blocks + block``).
 A CTA owns a (query, tile of ``tile`` blocks) and finds each slot's entries
 of its tile by a search of the window (:func:`prune_csr_layout`).
+
+``CONTRACT`` declares the shapes the kernel is checked at and its launch
+plan (:func:`launch_plan`, which the launcher takes its numbers from).
 """
 from __future__ import annotations
 
+import functools
 
+import numpy as np
 import torch
 
+from repro_torch.analysis.kernel_contracts import KernelContract, ShapeCase
 from repro_torch.kernels import common
 from repro_torch.kernels.block_prune_csr.ref import block_prune_csr_batched_ref
 
@@ -28,6 +34,8 @@ LAUNCHES = 0
 # Blocks a CTA: the tile that chip_smoke.py's sweep found fastest on the
 # engine's [64, 35, 2159] batch (PERF.md).
 PRUNE_TILE = 128
+# Threads of a CTA (THREADS in the kernel).
+THREADS = 256
 # Cells of a CTA's dense [group, tile] tile of products (40 KB of shared
 # memory): a round takes group = DENSE_CELLS // tile slots, at most Lq.
 DENSE_CELLS = 10_240
@@ -43,6 +51,21 @@ def prune_csr_layout(lq: int, n_blocks: int, tile: int = PRUNE_TILE) -> dict:
     group = max(1, min(lq, DENSE_CELLS // tile))
     return dict(tile=tile, tiles=-(-n_blocks // tile), group=group, rounds=-(-lq // group),
                 smem=4 * (group * tile + tile + 4 * group + 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(batch: int, n_bm: int, lq: int, n_blocks: int,
+                tile: int = PRUNE_TILE) -> common.LaunchPlan:
+    """The kernel's launch: a CTA a (tile of blocks, query), with
+    ``prune_csr_layout``'s shared memory."""
+    lay = prune_csr_layout(lq, n_blocks, tile)
+    g = lay["group"]
+    return common.LaunchPlan(
+        "block_prune_csr", "block_prune_csr_launch", "block_prune_csr_kernel",
+        (batch, n_bm, lq, n_blocks, tile, g), grid=(lay["tiles"], batch, 1), threads=THREADS,
+        smem=((f"dense tile f32[{g}, {tile}]", 4 * g * tile), (f"bounds f32[{tile}]", 4 * tile),
+              (f"slot weights f32[{g}]", 4 * g), (f"sub-windows i32[3 x {g} + 1]", 4 * (3 * g + 1))),
+        cover=(("x", n_blocks, tile), ("y", batch, 1)))
 
 
 def block_prune_csr_launch(
@@ -72,15 +95,13 @@ def block_prune_csr_launch(
         raise ValueError("base, cnt and q_weights must be [B, Lq] and theta [B]")
     if bm_block.ndim != 1 or bm_weight.shape != bm_block.shape:
         raise ValueError("bm_block and bm_weight must be matching 1-D lists")
-    layout = prune_csr_layout(lq, n_blocks, tile)
+    plan = launch_plan(B, bm_block.shape[0], lq, n_blocks, tile)
     ub = torch.empty((B, n_blocks), dtype=torch.float32, device=base.device)
     survive = torch.empty((B, n_blocks), dtype=torch.bool, device=base.device)
     if B and n_blocks:
         ptrs = tuple(t.data_ptr() for t in (bm_block, bm_weight, base, cnt, q_weights, theta,
                                               ub, survive))
-        common.launch("block_prune_csr", "block_prune_csr_launch", 8,
-                      ptrs + (B, bm_block.shape[0], lq, n_blocks, tile, layout["group"]),
-                      base.get_device())
+        common.launch("block_prune_csr", plan.symbol, 8, ptrs + plan.ints, base.get_device())
         LAUNCHES += 1
     return ub, survive
 
@@ -117,6 +138,80 @@ def block_prune_csr_batched(
         q_weights.to(torch.float32).contiguous(),
         torch.as_tensor(theta, dtype=torch.float32, device=base.device).contiguous(),
     )
-    if base.device.type == "cpu":
-        return block_prune_csr_batched_ref(*args, n_blocks=n_blocks, max_bm_per_term=m)
-    return block_prune_csr_launch(*args, n_blocks)
+    return common.run_kernel(
+        "block_prune_csr", (*base.shape, args[0].shape[0], n_blocks), base,
+        lambda: block_prune_csr_batched_ref(*args, n_blocks=n_blocks, max_bm_per_term=m),
+        lambda: block_prune_csr_launch(*args, n_blocks))
+
+
+# ---------------------------------------------------------------------------
+# the contract
+# ---------------------------------------------------------------------------
+
+
+def _contract_plan(dims, n_sms=common.H100_SMS):
+    return [launch_plan(dims["batch"], dims["n_bm"], dims["lq"], dims["nb"])]
+
+
+def _contract_call(dims, device):
+    """The wrapper at ``dims`` on CSR lists of random terms (each list's
+    blocks distinct and ascending, up to ``2 m`` of them) and windows into
+    them, a fifth of them (or ``dims["empty"]``) empty pad slots; one row
+    with theta = -inf."""
+    rng = np.random.default_rng(dims["n_bm"] + dims["lq"])
+    nb, m, n_bm = dims["nb"], dims["m"], dims["n_bm"]
+    bm_block = np.zeros(n_bm, np.int32)
+    starts, counts, total = [], [], 0
+    while True:
+        c = int(min(rng.integers(1, 2 * m + 1), nb))
+        if total + c > n_bm:
+            break
+        bm_block[total:total + c] = np.sort(rng.choice(nb, c, replace=False))
+        starts.append(total)
+        counts.append(c)
+        total += c
+    bm_weight = np.zeros(n_bm, np.float32)
+    bm_weight[:total] = rng.gamma(1.0, 1.0, total)
+    terms = rng.integers(0, len(starts), (dims["batch"], dims["lq"]))
+    base = np.asarray(starts, np.int32)[terms]
+    cnt = np.asarray(counts, np.int32)[terms]
+    qw = rng.gamma(1.0, 1.0, terms.shape).astype(np.float32)
+    empty = rng.random(terms.shape) < dims.get("empty", 0.2)
+    base[empty], cnt[empty], qw[empty] = total, 0, 0.0
+    theta = rng.uniform(0.0, 2.0, dims["batch"]).astype(np.float32)
+    theta[0] = -np.inf
+    args = tuple(torch.as_tensor(a, device=device)
+                 for a in (bm_block, bm_weight, base, cnt, qw, theta))
+    return functools.partial(block_prune_csr_batched, n_blocks=nb, max_bm_per_term=m), args
+
+
+# The reference contract's cases (same names and dims), then the edges
+# chip_smoke.py holds the kernel to (prune_inputs): lists holding the blocks
+# on both sides of every boundary of 32-block tiles, the engine's widths
+# (Lq 35, 2,159 blocks) at B = 64, 63 and 1, NB not a multiple of the tile,
+# a window cut at the end of the lists, all pad slots, one block.
+CONTRACT = KernelContract(
+    name="block_prune_csr",
+    description="CSR-walking block upper-bound + prune (DAAT phase 0, no densify)",
+    make_call=_contract_call,
+    plan=_contract_plan,
+    shape_grid=(
+        ShapeCase("b1", dict(batch=1, lq=8, nb=100, m=16, n_bm=800)),
+        ShapeCase("b4_wide", dict(batch=4, lq=32, nb=2048, m=64, n_bm=12000)),
+        ShapeCase("b3_tiny", dict(batch=3, lq=5, nb=17, m=3, n_bm=40)),
+        ShapeCase("b2_single_slot", dict(batch=2, lq=1, nb=64, m=8, n_bm=100)),
+        ShapeCase("edges_b64_lq35_nb2159",
+                  dict(batch=64, lq=35, nb=2159, m=900, n_bm=40000, edge_tile=32), port=True),
+        ShapeCase("edges_b63_lq35_nb2159",
+                  dict(batch=63, lq=35, nb=2159, m=900, n_bm=40000, edge_tile=32), port=True),
+        ShapeCase("edges_b1_lq35_nb2159",
+                  dict(batch=1, lq=35, nb=2159, m=900, n_bm=40000, edge_tile=32), port=True),
+        ShapeCase("ragged_b3_lq9_nb300",
+                  dict(batch=3, lq=9, nb=300, m=60, n_bm=1200, edge_tile=32), port=True),
+        ShapeCase("cut_at_end_b2_lq5", dict(batch=2, lq=5, nb=200, m=30, n_bm=400, cut=1),
+                  port=True),
+        ShapeCase("all_pad_b4_lq8", dict(batch=4, lq=8, nb=2159, m=100, n_bm=2000, empty=1.0),
+                  port=True),
+        ShapeCase("one_block_b2", dict(batch=2, lq=3, nb=1, m=1, n_bm=10), port=True),
+    ),
+)

@@ -6,18 +6,24 @@ The engine's state goes in as it is: the bool processed rows are read and
 written by the kernel as bytes, and no axis is padded to a lane multiple.
 For CPU tensors, and only for those, the wrappers run the plain versions in
 ``ref.py``. On a CUDA tensor the kernel runs or the call raises.
+
+``CONTRACT`` declares the shapes the kernel is checked at and its launch
+plan (:func:`launch_plan`, which both launchers take their numbers from).
 """
 from __future__ import annotations
 
+import functools
 
+import numpy as np
 import torch
 
+from repro_torch.analysis.kernel_contracts import KernelContract, ShapeCase
 from repro_torch.kernels import common
 from repro_torch.kernels.chunk_step.ref import (
     chunk_step_batched_ref,
     chunk_step_multi_batched_ref,
 )
-from repro_torch.kernels.sparse_score.ops import MAX_LQ, check_query_width
+from repro_torch.kernels.sparse_score.ops import MAX_LQ, QUERY_TABLE_SMEM, check_query_width
 
 # Launches of each CUDA kernel since the last reset (``chip_smoke.py`` sets
 # them to 0 before the main path and reads them after).
@@ -58,7 +64,8 @@ def _prepare(doc_terms, doc_weights, q_terms, q_weights, ub, processed, pool_s, 
 # (17 B a slot), the term filter and a few scalars (score_common.cuh).
 THREADS = 1024
 MAX_CLUSTER = 8
-STATIC_SMEM = 17 * MAX_LQ + 4 * 2048 + 32
+STATIC_SMEM_BUFFERS = QUERY_TABLE_SMEM + (("scalars", 32),)
+STATIC_SMEM = sum(b for _, b in STATIC_SMEM_BUFFERS)
 
 
 def cluster_size(batch: int, n_sms: int) -> int:
@@ -90,6 +97,37 @@ def chunk_step_layout(nb: int, k: int, block_budget: int, block_size: int) -> di
     return dict(list_len=list_len, n_keys=n_keys, smem=smem)
 
 
+def launch_plan(batch: int, nb: int, k: int, lq: int, tmax: int, budget: int, block_size: int,
+                n_live: int, trips: int | None, n_sms: int) -> common.LaunchPlan:
+    """The launch of one trip (``trips`` None) or of up to ``trips`` trips:
+    a cluster of ``cluster_size`` CTAs a query, ``chunk_step_layout``'s
+    dynamic shared memory, the query table and a few scalars static."""
+    return _plan(batch, nb, k, lq, tmax, budget, block_size, n_live, trips,
+                 cluster_size(batch, n_sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(batch, nb, k, lq, tmax, budget, block_size, n_live, trips, cluster) -> common.LaunchPlan:
+    lay = chunk_step_layout(nb, k, budget, block_size)
+    n_cand = budget * block_size
+    head = (batch, nb, k, lq, tmax, budget, block_size, n_live)
+    tail = (lay["list_len"], lay["n_keys"], cluster, lay["smem"])
+    if trips is None:
+        symbol, ints = "chunk_step_launch", head + tail
+    else:
+        symbol, ints = "chunk_step_multi_launch", head + (trips,) + tail
+    return common.LaunchPlan(
+        "chunk_step", symbol, "chunk_step_kernel", ints, grid=(batch * cluster, 1, 1),
+        threads=THREADS, cluster=cluster,
+        smem=((f"keys u64[{lay['n_keys']}]", 8 * lay["n_keys"]),
+              (f"selected keys u64[{budget}]", 8 * budget), (f"bounds f32[{nb}]", 4 * nb),
+              (f"candidate scores f32[{n_cand}]", 4 * n_cand),
+              (f"pool (f32, i32)[{k}]", 8 * k), (f"selected blocks i32[{budget}]", 4 * budget),
+              (f"processed u8[{nb}]", nb), (f"live blocks u8[{budget}]", budget)),
+        static_smem=STATIC_SMEM_BUFFERS,
+        cover=(("x", batch, 1),))
+
+
 def _launch(state, live, trips_left, trips, block_budget, block_size, n_live):
     """Launch one of the two kernels; returns the new state (and trips_done)."""
     global LAUNCHES, MULTI_LAUNCHES
@@ -101,32 +139,37 @@ def _launch(state, live, trips_left, trips, block_budget, block_size, n_live):
     B, nb = ub.shape
     k, lq, tmax = ps.shape[1], qt.shape[1], dt.shape[1]
     check_query_width(lq)
-    lay = chunk_step_layout(nb, k, block_budget, block_size)
-    cluster = cluster_size(B, common.sm_count(ub.get_device()))
+    plan = launch_plan(B, nb, k, lq, tmax, block_budget, block_size, n_live,
+                       None if trips_left is None else trips, common.sm_count(ub.get_device()))
     out_s, out_i = torch.empty_like(ps), torch.empty_like(pi)
     out_th, out_proc = torch.empty_like(th), torch.empty_like(proc)
     head = [t.data_ptr() for t in (ub, proc, ps, pi, th, qt, qw, dt, dw)]
     head.append(None if live is None else live.data_ptr())
     outs = [t.data_ptr() for t in (out_s, out_i, out_th, out_proc)]
-    dims = [B, nb, k, lq, tmax, block_budget, block_size, n_live]
-    tail = [lay["list_len"], lay["n_keys"], cluster, lay["smem"]]
     if trips_left is None:
-        symbol, n_ptrs = "chunk_step_launch", 14
-        args = head + outs + dims + tail
+        n_ptrs = 14
+        ptrs = head + outs
         result = (out_s, out_i, out_th, out_proc)
     else:
-        symbol, n_ptrs = "chunk_step_multi_launch", 16
+        n_ptrs = 16
         trips_done = torch.empty((B,), dtype=torch.int32, device=ub.device)
-        args = (head + [trips_left.data_ptr()] + outs + [trips_done.data_ptr()] + dims + [trips]
-                + tail)
+        ptrs = head + [trips_left.data_ptr()] + outs + [trips_done.data_ptr()]
         result = (out_s, out_i, out_th, out_proc, trips_done)
     if B:
-        common.launch("chunk_step", symbol, n_ptrs, tuple(args), ub.get_device())
+        common.launch("chunk_step", plan.symbol, n_ptrs, tuple(ptrs) + plan.ints,
+                      ub.get_device())
         if trips_left is None:
             LAUNCHES += 1
         else:
             MULTI_LAUNCHES += 1
     return result
+
+
+def _event_ints(state, block_budget, block_size, n_live) -> tuple:
+    """(B, nb, k, lq, tmax, budget, block size, n_live): what a launch is
+    planned from."""
+    dt, _, qt, _, ub, _, ps = state[:7]
+    return (*ub.shape, ps.shape[1], qt.shape[1], dt.shape[1], block_budget, block_size, n_live)
 
 
 def chunk_step_batched(
@@ -160,9 +203,9 @@ def chunk_step_batched(
     state, live = _prepare(doc_terms, doc_weights, q_terms, q_weights, ub, processed, pool_s,
                            pool_i, theta, block_budget, block_size, live)
     kw = dict(block_budget=block_budget, block_size=block_size, n_live=n_live)
-    if ub.device.type == "cpu":
-        return chunk_step_batched_ref(*state, live=live, **kw)
-    return _launch(state, live, None, 1, **kw)
+    return common.run_kernel("chunk_step", _event_ints(state, block_budget, block_size, n_live),
+                             state[4], lambda: chunk_step_batched_ref(*state, live=live, **kw),
+                             lambda: _launch(state, live, None, 1, **kw))
 
 
 def chunk_step_multi_batched(
@@ -196,7 +239,81 @@ def chunk_step_multi_batched(
                            pool_i, theta, block_budget, block_size, live)
     trips_left = trips_left.to(torch.int32).contiguous()
     kw = dict(block_budget=block_budget, block_size=block_size, n_live=n_live)
-    if ub.device.type == "cpu":
-        return chunk_step_multi_batched_ref(*state, trips_left, trips_per_launch=trips_per_launch,
-                                            live=live, **kw)
-    return _launch(state, live, trips_left, trips_per_launch, **kw)
+    return common.run_kernel(
+        "chunk_step_multi",
+        _event_ints(state, block_budget, block_size, n_live) + (trips_per_launch,), state[4],
+        lambda: chunk_step_multi_batched_ref(*state, trips_left, trips_per_launch=trips_per_launch,
+                                             live=live, **kw),
+        lambda: _launch(state, live, trips_left, trips_per_launch, **kw))
+
+
+# ---------------------------------------------------------------------------
+# the contract
+# ---------------------------------------------------------------------------
+
+
+def _contract_plan(dims, n_sms=common.H100_SMS):
+    nb = -(-dims["n_docs"] // dims["block_size"])
+    return [launch_plan(dims["B"], nb, dims["k"], dims["lq"], dims["tmax"], dims["budget"],
+                        dims["block_size"], dims["n_docs"], dims.get("trips"), n_sms)]
+
+
+def _contract_call(dims, device):
+    """One trip (or, with ``trips``, a multi-trip launch) at ``dims`` on an
+    engine state made from a seed: a doc store of 40 terms laid out as
+    ``build_impact_index`` lays it, bounds, a fifth of the blocks already
+    processed, a sorted pool of live doc ids, theta its k-th score; with
+    ``live`` a tombstone bitmap."""
+    rng = np.random.default_rng(dims["B"] * 1000 + dims["budget"] * 10 + dims["k"])
+    B, k, lq, bs, tmax, n_docs = (dims[n] for n in ("B", "k", "lq", "block_size", "tmax",
+                                                     "n_docs"))
+    vocab = 40
+    nb = -(-n_docs // bs)
+    dt = np.full((nb * bs, tmax), vocab, np.int32)
+    dw = np.zeros((nb * bs, tmax), np.float32)
+    for d, n in enumerate(rng.integers(0, tmax + 1, nb * bs)):
+        dt[d, :n] = np.sort(rng.choice(vocab, n, replace=False))
+        dw[d, :n] = rng.gamma(2.0, 1.0, n)
+    qt = rng.integers(0, vocab, (B, lq)).astype(np.int32)
+    qw = rng.gamma(1.0, 1.0, (B, lq)).astype(np.float32)
+    qw[:, -1] = 0.0
+    ub = rng.uniform(1.0, 10.0, (B, nb)).astype(np.float32)
+    processed = rng.random((B, nb)) < 0.2
+    pool_s = -np.sort(-rng.uniform(0.0, 4.0, (B, k)), axis=1).astype(np.float32)
+    pool_i = np.stack([rng.choice(n_docs, k, replace=False) for _ in range(B)]).astype(np.int32)
+    t = functools.partial(torch.as_tensor, device=device)
+    state = tuple(t(a) for a in (dt, dw, qt, qw, ub, processed, pool_s, pool_i, pool_s[:, -1]))
+    live = t(rng.random(nb * bs) < 0.7, dtype=torch.int32) if dims.get("live") else None
+    kw = dict(block_budget=dims["budget"], block_size=bs, n_live=n_docs, live=live)
+    if "trips" in dims:
+        fn = functools.partial(chunk_step_multi_batched, trips_per_launch=dims["trips"], **kw)
+        return fn, state + (t(np.full(B, dims["trips"], np.int32)),)
+    return functools.partial(chunk_step_batched, **kw), state
+
+
+_CASE = dict(n_docs=220, block_size=32, lq=6, tmax=8)
+_CASE24 = dict(n_docs=130, block_size=24, lq=4, tmax=8)
+
+# The reference contract's cases (same names and dims): the full B x budget
+# x k cross on a 220-doc, bs = 32 index (7 blocks), the ragged bs = 24
+# degenerate, the multi-trip cases, and the tombstone-bitmap variants.
+CONTRACT = KernelContract(
+    name="chunk_step",
+    description="fused DAAT phase-2 chunk step (shared-memory select + score + merge)",
+    make_call=_contract_call,
+    plan=_contract_plan,
+    shape_grid=tuple(
+        ShapeCase(f"b{B}_budget{budget}_k{k}", dict(B=B, budget=budget, k=k, **_CASE))
+        for B in (1, 3) for budget in (1, 3, 7) for k in (1, 5)
+    ) + (
+        ShapeCase("ragged_bs24", dict(B=2, budget=5, k=3, **_CASE24)),
+    ) + tuple(
+        ShapeCase(f"multi_b{B}_trips{trips}_budget{budget}",
+                  dict(B=B, trips=trips, budget=budget, k=5, **_CASE))
+        for B, trips, budget in ((1, 1, 3), (3, 3, 7), (2, 4, 2))
+    ) + (
+        ShapeCase("multi_ragged_bs24", dict(B=2, trips=2, budget=5, k=3, **_CASE24)),
+        ShapeCase("live_b2_budget3", dict(B=2, budget=3, k=5, live=1, **_CASE)),
+        ShapeCase("multi_live_b2_trips3", dict(B=2, trips=3, budget=3, k=5, live=1, **_CASE)),
+    ),
+)

@@ -14,6 +14,13 @@ once (its argument types set, then cached), pointers go as plain ints from
 ``data_ptr()``, and the stream is the current stream's raw handle, read
 without building a ``torch.cuda.Stream`` object, so a launch repeats no
 binding work on the host.
+
+Every wrapper picks its branch through :func:`run_kernel`: the plain
+version for CPU tensors, the launch for any other. A launch's numbers come
+from a :class:`LaunchPlan`, which each ``ops.py`` makes with the same
+function for its launcher and for its ``CONTRACT``
+(``repro_torch.analysis.kernel_contracts``), and which each source's
+``<launcher stem>_plan`` export computes again in C.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -41,6 +49,56 @@ _SMS: dict[int, int] = {}
 
 # Shared memory one block may use on the H100 (227 KB, opted in above 48 KB).
 SMEM_LIMIT = 232_448
+# Streaming multiprocessors of an H100 SXM: what a plan assumes where it is
+# made for no card (on the CPU, for the contract checks).
+H100_SMS = 132
+
+# The op recorders of repro_torch.analysis.op_trace while they record,
+# innermost last: run_kernel tells the innermost of each kernel call.
+RECORDERS: list = []
+
+
+class LaunchPlan(NamedTuple):
+    """One launch of a kernel as its C launcher makes it.
+
+    ``ints`` are the launcher's int arguments in order (the pointers and the
+    stream aside); ``<symbol stem>_plan`` in the source takes the same ints
+    and writes ``grid``, ``threads``, ``cluster`` and the dynamic shared
+    memory. ``smem`` and ``static_smem`` name each buffer of the dynamic
+    and the static shared memory with its bytes. ``cover``: ``(axis,
+    extent, tile)``, each cluster along ``axis`` covering ``tile`` of
+    ``extent`` (rows, slots, docs or blocks). ``exact``: ``(what, extent,
+    divisor)`` for each division the launcher makes without rounding up.
+    ``function`` is the ``__global__`` instance launched, as
+    ``name<template args>``."""
+
+    kernel: str
+    symbol: str
+    function: str
+    ints: tuple
+    grid: tuple
+    threads: int
+    cluster: int = 1
+    smem: tuple = ()
+    static_smem: tuple = ()
+    cover: tuple = ()
+    exact: tuple = ()
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic and static shared memory of one CTA."""
+        return sum(b for _, b in self.smem) + sum(b for _, b in self.static_smem)
+
+
+def run_kernel(name: str, ints: tuple, on: torch.Tensor, plain, launch):
+    """A wrapper's two branches: ``plain()`` where ``on`` lies on the CPU,
+    else ``launch()`` (which launches the kernel or raises). An active
+    recorder sees the call as one event ``kernel:<name>`` with ``ints``,
+    the numbers the launch is planned from; with none active this costs
+    one test."""
+    if RECORDERS:
+        return RECORDERS[-1].kernel_call(name, ints, on, plain, launch)
+    return plain() if on.device.type == "cpu" else launch()
 
 
 def round_up(n: int, m: int) -> int:

@@ -4,13 +4,20 @@ They pad, sort postings by doc (``sorted_posting_tiles``) and launch the
 kernel for CUDA tensors. For CPU tensors, and only for those, they run the
 plain PyTorch version in ``ref.py`` instead. There is no fallback: on a
 CUDA tensor the kernel runs or the call raises.
+
+``CONTRACT`` declares the shapes the kernel is checked at (the reference
+contract's, and the edges ``chip_smoke.py`` holds it to) and the launch
+plan it is checked against (:func:`launch_plan`, which the launcher also
+takes its numbers from).
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
+from repro_torch.analysis.kernel_contracts import KernelContract, ShapeCase
 from repro_torch.kernels import common
 from repro_torch.kernels.impact_scatter.ref import impact_scatter_batched_ref
 
@@ -27,6 +34,7 @@ LAUNCHES = 0
 THREADS = 256
 SLOTS_PER_THREAD = (2, 4, 8)
 STAGES = (1, 2, 4, 8, 16, 32)
+HEAD = 4  # slots staged before a range: the previous slot's doc
 EXTRA = 64
 # CTAs an SM should get from a batch before a CTA takes more ranges.
 CTAS_PER_SM = 56
@@ -53,6 +61,27 @@ def range_layout(batch: int, n_slots: int, n_docs: int, n_sms: int) -> tuple[int
     return spt, stages
 
 
+def launch_plan(batch: int, n_slots: int, n_docs: int, n_sms: int) -> common.LaunchPlan:
+    """The kernel's launch for ``[batch, n_slots]`` sorted slots over
+    ``n_docs`` docs: ``range_layout``'s (spt, stages), one CTA a run of
+    ``stages`` ranges of a row (one at least, which zeroes an empty row)
+    and a row a ``grid.y``; two staged ranges of ``HEAD + THREADS * spt +
+    EXTRA`` slots in static shared memory."""
+    return _plan(batch, n_slots, n_docs, *range_layout(batch, n_slots, n_docs, n_sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(batch: int, n_slots: int, n_docs: int, spt: int, stages: int) -> common.LaunchPlan:
+    span = THREADS * spt * stages
+    width = HEAD + THREADS * spt + EXTRA
+    return common.LaunchPlan(
+        "impact_scatter", "impact_scatter_launch", f"impact_scatter_kernel<{spt}>",
+        (batch, n_slots, n_docs, spt, stages), grid=(max(1, -(-n_slots // span)), batch, 1),
+        threads=THREADS,
+        static_smem=((f"s_doc i32[2, {width}]", 8 * width), (f"s_val f32[2, {width}]", 8 * width)),
+        cover=(("x", n_slots, span), ("y", batch, 1)))
+
+
 def impact_scatter_launch(
     docs: torch.Tensor, contribs: torch.Tensor, n_docs: int, block_d: int
 ) -> torch.Tensor:
@@ -75,10 +104,10 @@ def impact_scatter_launch(
         raise ValueError(f"the kernel takes B <= 65535, got {B}")
     out = contribs.new_empty((B, n_docs))
     if B and n_docs:
-        spt, stages = range_layout(B, P, n_docs, common.sm_count(docs.get_device()))
-        common.launch("impact_scatter", "impact_scatter_launch", 3,
-                      (docs.data_ptr(), contribs.data_ptr(), out.data_ptr(), B, P, n_docs, spt,
-                       stages), docs.get_device())
+        plan = launch_plan(B, P, n_docs, common.sm_count(docs.get_device()))
+        common.launch("impact_scatter", plan.symbol, 3,
+                      (docs.data_ptr(), contribs.data_ptr(), out.data_ptr()) + plan.ints,
+                      docs.get_device())
         LAUNCHES += 1
     return out
 
@@ -99,10 +128,10 @@ def impact_scatter_batched(
     common.check_block_d(block_d)  # the same limits on the CPU as on the card
     n_docs_pad = common.round_up(max(n_docs, block_d), block_d)
     docs, c = common.sorted_posting_tiles(doc_ids, contribs, n_docs_pad, tile_p)
-    if docs.device.type == "cpu":
-        acc = impact_scatter_batched_ref(docs, c, n_docs_pad)
-    else:
-        acc = impact_scatter_launch(docs, c, n_docs_pad, block_d)
+    acc = common.run_kernel(
+        "impact_scatter", (*docs.shape, n_docs_pad), docs,
+        lambda: impact_scatter_batched_ref(docs, c, n_docs_pad),
+        lambda: impact_scatter_launch(docs, c, n_docs_pad, block_d))
     return acc[:, :n_docs]
 
 
@@ -118,3 +147,54 @@ def impact_scatter(
     return impact_scatter_batched(
         doc_ids[None], contribs[None], n_docs, block_d=block_d, tile_p=tile_p
     )[0]
+
+
+# ---------------------------------------------------------------------------
+# the contract
+# ---------------------------------------------------------------------------
+
+
+def _contract_plan(dims, n_sms=common.H100_SMS):
+    """The launch the wrapper makes at ``dims``: slots padded to ``tile_p``,
+    docs to ``block_d``."""
+    n_docs_pad = common.round_up(max(dims["n_docs"], dims["block_d"]), dims["block_d"])
+    n_slots = common.round_up(dims["n_postings"], dims["tile_p"])
+    return [launch_plan(dims.get("batch", 1), n_slots, n_docs_pad, n_sms)]
+
+
+def _contract_call(dims, device):
+    """The wrapper at ``dims`` on random postings (gamma contributions)."""
+    rng = np.random.default_rng(dims["n_postings"] + dims["n_docs"])
+    shape = ((dims["batch"],) if "batch" in dims else ()) + (dims["n_postings"],)
+    docs = torch.as_tensor(rng.integers(0, dims["n_docs"], shape), dtype=torch.int32,
+                           device=device)
+    c = torch.as_tensor(rng.gamma(2.0, 1.0, shape), dtype=torch.float32, device=device)
+    fn = impact_scatter_batched if "batch" in dims else impact_scatter
+    return functools.partial(fn, n_docs=dims["n_docs"], block_d=dims["block_d"],
+                             tile_p=dims["tile_p"]), (docs, c)
+
+
+# The edge that chip_smoke.py holds both scatter kernels to at block_d 512
+# (scatter_edge_inputs: block ``empty`` gets no posting, block ``long`` a run
+# over three stages of 1,024 postings, so 6,000 + 3 * 1,024 + 100 postings a
+# row, and every doc of block ``dead`` is tombstoned).
+EDGE = dict(batch=3, n_postings=9172, n_docs=4000, block_d=512, tile_p=512, empty=2, long=5,
+            dead=6)
+
+# The reference contract's cases (same names and dims), then the edge.
+CONTRACT = KernelContract(
+    name="impact_scatter",
+    description="batch-gridded scatter-add accumulator (SAAT hot loop)",
+    make_call=_contract_call,
+    plan=_contract_plan,
+    expect_async_copy=True,
+    shape_grid=(
+        ShapeCase("single_tile", dict(n_postings=128, n_docs=512, block_d=256, tile_p=128)),
+        ShapeCase("ragged", dict(n_postings=1000, n_docs=1000, block_d=256, tile_p=128)),
+        ShapeCase("multi_tile", dict(n_postings=4096, n_docs=512, block_d=256, tile_p=128)),
+        ShapeCase("b1", dict(batch=1, n_postings=128, n_docs=700, block_d=256, tile_p=128)),
+        ShapeCase("b3_ragged", dict(batch=3, n_postings=1000, n_docs=700, block_d=256, tile_p=128)),
+        ShapeCase("b8", dict(batch=8, n_postings=1000, n_docs=700, block_d=256, tile_p=128)),
+        ShapeCase("edge", EDGE, port=True),
+    ),
+)

@@ -10,12 +10,19 @@ For CPU tensors, and only for those, they run the plain versions in
 ``ref.py``. On a CUDA tensor the kernel runs or the call raises. Unlike the
 reference's wrappers they pad neither the doc axis nor the query slots: the
 kernel masks its own ragged tail.
+
+``CONTRACT`` declares the shapes the kernel is checked at and the launch
+plans of both entries (:func:`launch_plan`, :func:`blocks_launch_plan`,
+which the launchers take their numbers from).
 """
 from __future__ import annotations
 
+import functools
 
+import numpy as np
 import torch
 
+from repro_torch.analysis.kernel_contracts import KernelContract, ShapeCase
 from repro_torch.kernels import common
 from repro_torch.kernels.sparse_score.ref import sparse_score_batched_ref, sparse_score_blocks_ref
 
@@ -33,13 +40,31 @@ CTAS_PER_SM = 2048 // THREADS
 MAX_DOCS_PER_CTA = 32
 GATHERED_DOCS_PER_CTA = 64
 
-# Query slots the kernels keep in shared memory (MAX_LQ in score_common.cuh).
+# Query slots the kernels keep in shared memory, and the words of their
+# term filter (MAX_LQ and FILTER_WORDS in score_common.cuh).
 MAX_LQ = 256
+FILTER_WORDS = 2048
+# The static shared memory of a scoring CTA (and of chunk_step's): the
+# query table (term, weight, flag, matched term and value: 17 B a slot) and
+# the term filter.
+QUERY_TABLE_SMEM = ((f"query table (17 B x {MAX_LQ} slots)", 17 * MAX_LQ),
+                    (f"term filter u32[{FILTER_WORDS}]", 4 * FILTER_WORDS))
 
 
 def check_query_width(lq: int) -> None:
     if lq > MAX_LQ:
         raise ValueError(f"queries of {lq} slots exceed the kernels' {MAX_LQ}")
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(batch: int, n: int, tmax: int, lq: int) -> common.LaunchPlan:
+    """The gathered entry's launch: a CTA a (``GATHERED_DOCS_PER_CTA``
+    docs, query)."""
+    span = GATHERED_DOCS_PER_CTA
+    return common.LaunchPlan(
+        "sparse_score", "sparse_score_launch", "sparse_score_kernel<false>",
+        (batch, n, tmax, lq, span), grid=(-(-n // span), batch, 1), threads=THREADS,
+        static_smem=QUERY_TABLE_SMEM + (("s_n", 4),), cover=(("x", n, span), ("y", batch, 1)))
 
 
 def sparse_score_launch(
@@ -61,10 +86,10 @@ def sparse_score_launch(
     check_query_width(lq)
     out = torch.empty((B, n), dtype=torch.float32, device=doc_terms.device)
     if B and n:
-        common.launch("sparse_score", "sparse_score_launch", 5,
+        plan = launch_plan(B, n, tmax, lq)
+        common.launch("sparse_score", plan.symbol, 5,
                       (doc_terms.data_ptr(), doc_weights.data_ptr(), q_terms.data_ptr(),
-                       q_weights.data_ptr(), out.data_ptr(), B, n, tmax, lq,
-                       GATHERED_DOCS_PER_CTA), doc_terms.get_device())
+                       q_weights.data_ptr(), out.data_ptr()) + plan.ints, doc_terms.get_device())
         LAUNCHES += 1
     return out
 
@@ -78,6 +103,24 @@ def docs_per_cta(batch: int, n: int, n_sms: int) -> int:
     warps = THREADS // 32
     fill = -(-max(batch, 1) * n // (n_sms * CTAS_PER_SM))
     return min(MAX_DOCS_PER_CTA, max(warps, fill // warps * warps))
+
+
+def blocks_launch_plan(batch: int, nb: int, block_size: int, n_live: int, tmax: int, lq: int,
+                       n_sms: int) -> common.LaunchPlan:
+    """The store-addressed entry's launch: a CTA a (``docs_per_cta`` docs,
+    query)."""
+    return _blocks_plan(batch, nb, block_size, n_live, tmax, lq,
+                        docs_per_cta(batch, nb * block_size, n_sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def _blocks_plan(batch, nb, block_size, n_live, tmax, lq, span) -> common.LaunchPlan:
+    n = nb * block_size
+    return common.LaunchPlan(
+        "sparse_score", "sparse_score_blocks_launch", "sparse_score_kernel<true>",
+        (batch, nb, block_size, n_live, tmax, lq, span), grid=(-(-n // span), batch, 1),
+        threads=THREADS, static_smem=QUERY_TABLE_SMEM + (("s_n", 4),),
+        cover=(("x", n, span), ("y", batch, 1)))
 
 
 def sparse_score_blocks_launch(
@@ -117,15 +160,16 @@ def sparse_score_blocks_launch(
                          f"{block_live.dtype}{list(block_live.shape)}")
     check_query_width(lq)
     n = nb * block_size
-    span = docs_per_cta(B, n, common.sm_count(doc_terms.get_device()))
     out = torch.empty((B, n), dtype=torch.float32, device=doc_terms.device)
     if B and n:
-        common.launch("sparse_score", "sparse_score_blocks_launch", 8,
+        plan = blocks_launch_plan(B, nb, block_size, n_live, tmax, lq,
+                                  common.sm_count(doc_terms.get_device()))
+        common.launch("sparse_score", plan.symbol, 8,
                       (doc_terms.data_ptr(), doc_weights.data_ptr(), block_ids.data_ptr(),
                        None if live is None else live.data_ptr(),
                        None if block_live is None else block_live.data_ptr(),
-                       q_terms.data_ptr(), q_weights.data_ptr(), out.data_ptr(),
-                       B, nb, block_size, n_live, tmax, lq, span), doc_terms.get_device())
+                       q_terms.data_ptr(), q_weights.data_ptr(), out.data_ptr()) + plan.ints,
+                      doc_terms.get_device())
         STORE_LAUNCHES += 1
     return out
 
@@ -161,9 +205,10 @@ def sparse_score_blocks_batched(
     kw = dict(block_size=block_size, n_live=n_live,
               live=None if live is None else live.to(torch.int32)[: doc_terms.shape[0]].contiguous(),
               block_live=None if block_live is None else block_live.to(torch.bool).contiguous())
-    if doc_terms.device.type == "cpu":
-        return sparse_score_blocks_ref(*args, **kw)
-    return sparse_score_blocks_launch(*args, **kw)
+    return common.run_kernel(
+        "sparse_score_blocks",
+        (*args[2].shape, block_size, n_live, doc_terms.shape[1], q_terms.shape[1]), args[0],
+        lambda: sparse_score_blocks_ref(*args, **kw), lambda: sparse_score_blocks_launch(*args, **kw))
 
 
 def sparse_score_batched(
@@ -181,9 +226,9 @@ def sparse_score_batched(
         q_terms.to(torch.int32).contiguous(),
         q_weights.to(torch.float32).contiguous(),
     )
-    if doc_terms.device.type == "cpu":
-        return sparse_score_batched_ref(*args)
-    return sparse_score_launch(*args)
+    return common.run_kernel("sparse_score", (*args[0].shape, args[2].shape[-1]), args[0],
+                             lambda: sparse_score_batched_ref(*args),
+                             lambda: sparse_score_launch(*args))
 
 
 def sparse_score(
@@ -195,3 +240,85 @@ def sparse_score(
     """Scores for ``[N, Tmax]`` doc rows against one ``[Lq]`` query: a batch
     of one. f32[N]."""
     return sparse_score_batched(doc_terms[None], doc_weights[None], q_terms[None], q_weights[None])[0]
+
+
+# ---------------------------------------------------------------------------
+# the contract
+# ---------------------------------------------------------------------------
+
+
+def _contract_plan(dims, n_sms=common.H100_SMS):
+    B = dims.get("batch", 1)
+    if dims.get("store"):
+        return [blocks_launch_plan(B, dims["nb"], dims["block_size"], dims["n_live"],
+                                   dims["tmax"], dims["lq"], n_sms)]
+    return [launch_plan(B, dims["n"], dims["tmax"], dims["lq"])]
+
+
+def _store_call(dims, device):
+    """The store-addressed entry on a store of ``n_blocks`` blocks laid out
+    as ``build_impact_index`` lays it (each row its distinct ascending
+    terms, then the pad term ``vocab`` to its end), ``nb`` distinct blocks a
+    query, a tombstone bitmap and a live-block gate."""
+    rng = np.random.default_rng(dims["tmax"] * dims["lq"])
+    n_blocks, bs, tmax, vocab = dims["n_blocks"], dims["block_size"], dims["tmax"], dims["vocab"]
+    B, lq, nb = dims["batch"], dims["lq"], dims["nb"]
+    dt = np.full((n_blocks * bs, tmax), vocab, np.int32)
+    dw = np.zeros((n_blocks * bs, tmax), np.float32)
+    for d, n in enumerate(rng.integers(0, tmax + 1, n_blocks * bs)):
+        dt[d, :n] = np.sort(rng.choice(vocab, n, replace=False))
+        dw[d, :n] = rng.gamma(1.0, 1.0, n)
+    qt = rng.integers(0, vocab, (B, lq)).astype(np.int32)
+    qw = rng.gamma(1.0, 1.0, (B, lq)).astype(np.float32)
+    ids = np.stack([rng.choice(n_blocks, nb, replace=False) for _ in range(B)]).astype(np.int32)
+    live = rng.random(n_blocks * bs) < 0.8
+    block_live = rng.random((B, nb)) < 0.7
+    t = functools.partial(torch.as_tensor, device=device)
+    fn = functools.partial(sparse_score_blocks_batched, block_size=bs, n_live=dims["n_live"],
+                           live=t(live, dtype=torch.int32), block_live=t(block_live))
+    return fn, (t(dt), t(dw), t(ids), t(qt), t(qw))
+
+
+def _contract_call(dims, device):
+    """The gathered entry at ``dims`` (a 50-term vocabulary, so terms match
+    often; a repeated query term and a zero-weight slot), or with ``store``
+    the store-addressed one (:func:`_store_call`). The reference's
+    ``block_d`` is its doc tile; the kernel here tiles the doc axis itself."""
+    if dims.get("store"):
+        return _store_call(dims, device)
+    rng = np.random.default_rng(dims["n"] * dims["tmax"] * dims["lq"])
+    B = dims.get("batch", 1)
+    dt = rng.integers(0, 50, (B, dims["n"], dims["tmax"])).astype(np.int32)
+    dw = rng.gamma(1.0, 1.0, dt.shape).astype(np.float32)
+    qt = rng.integers(0, 50, (B, dims["lq"])).astype(np.int32)
+    qw = rng.gamma(1.0, 1.0, qt.shape).astype(np.float32)
+    if dims["lq"] > 1:
+        qt[:, 1] = qt[:, 0]
+    if dims["lq"] > 2:
+        qw[:, 2] = 0.0
+    args = [dt, dw, qt, qw] if "batch" in dims else [dt[0], dw[0], qt[0], qw[0]]
+    fn = sparse_score_batched if "batch" in dims else sparse_score
+    return fn, tuple(torch.as_tensor(a, device=device) for a in args)
+
+
+# The reference contract's cases (same names and dims), then the
+# store-addressed entry on a small store whose last 5 docs are pad docs.
+# (chip_smoke.py also holds that entry to the split trip's widths, B = 64,
+# 16 blocks of 128 a query, Tmax 650, Lq 35: STORE_EDGE there. Its plain
+# version takes about 20 s on one CPU thread, so it is not a case here.)
+CONTRACT = KernelContract(
+    name="sparse_score",
+    description="match-and-accumulate sparse scorer (DAAT chunk scoring)",
+    make_call=_contract_call,
+    plan=_contract_plan,
+    shape_grid=(
+        ShapeCase("small", dict(n=100, tmax=16, lq=8, block_d=128)),
+        ShapeCase("aligned", dict(n=512, tmax=64, lq=32, block_d=128)),
+        ShapeCase("ragged", dict(n=130, tmax=7, lq=3, block_d=128)),
+        ShapeCase("b1", dict(batch=1, n=100, tmax=16, lq=8, block_d=128)),
+        ShapeCase("b3_ragged", dict(batch=3, n=130, tmax=7, lq=3, block_d=128)),
+        ShapeCase("b4_aligned", dict(batch=4, n=512, tmax=64, lq=32, block_d=128)),
+        ShapeCase("store_b3", dict(store=1, n_blocks=6, block_size=32, tmax=40, vocab=200,
+                                   batch=3, lq=8, nb=4, n_live=6 * 32 - 5), port=True),
+    ),
+)

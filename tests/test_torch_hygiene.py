@@ -22,9 +22,11 @@
   (``archs/{embedding,gnn,recsys}.py``, ``configs/*``, ``data/graphs.py``,
   ``launch/train.py``), and of the sharding half of the distribution layer
   (``distributed/{collectives,elastic}.py``, ``launch/{mesh,steps,dryrun,
-  costs}.py``), the port's counterpart has too, but for the names of
-  modules not yet ported (``NOT_YET_PORTED``) and the names left out with
-  their reason (``NOT_PORTED``); the kernels'
+  costs}.py``), and of the static analysis (``analysis/{kernel_contracts,
+  hot_path,check}.py``, and ``analysis/jaxpr_walk.py`` against
+  ``analysis/op_trace.py``), the port's counterpart has too, but for the
+  names of modules not yet ported (``NOT_YET_PORTED``) and the names left
+  out with their reason (``NOT_PORTED``); the kernels'
   ``ops`` and ``ref`` modules still import by ``from ... import ops`` after
   the package re-exports the wrappers.
 """
@@ -310,13 +312,34 @@ def test_serve_cli_raises_without_a_gpu():
 
 # Names the reference exports (or defines in a module the defines check
 # reads) whose modules the port has not ported yet, with their queue item
-# (ROADMAP.md, queue A). Empty: queue A's last item, A13 (``analysis/``),
-# defines no name these checks read.
+# (ROADMAP.md, queue A). Empty: queue A's last module, A13 (``analysis/``),
+# is ported.
 NOT_YET_PORTED: dict = {}
 # Names left out of a ported module, with the reason.
+_JAXPR = "analysis/jaxpr_walk.py's jaxpr internals: the port records eager ops (op_trace.py)"
 NOT_PORTED = {
     "parse_collectives_loop_aware": "launch/costs.py's census of XLA's post-partitioning HLO: "
                                     "the port runs no SPMD partitioner and emits no HLO",
+    # analysis/jaxpr_walk.py: walks and Pallas introspection of jaxprs
+    "sub_jaxprs": _JAXPR,
+    "iter_eqns": _JAXPR + "; op_trace.iter_ops walks a recorded call",
+    "find_primitives": _JAXPR,
+    "find_pallas_calls": _JAXPR + "; op_trace.find_kernel_calls finds the kernel events",
+    "is_ref": _JAXPR,
+    "memory_space_of": _JAXPR + ": a CUDA kernel has no VMEM/SMEM/ANY operand spaces",
+    "aval_bytes": _JAXPR,
+    "KernelOperand": _JAXPR + "; a LaunchPlan names each shared-memory buffer",
+    "num_scalar_prefetch_operands": "PrefetchScalarGridSpec has no CUDA counterpart: the port "
+                                    "checks that no host read feeds a launch (host_read)",
+    "kernel_operands": _JAXPR + "; a LaunchPlan names each shared-memory buffer",
+    "PendingDma": "the DMA semaphore walk over a kernel jaxpr: the port reads the CUDA source "
+                  "(op_trace.async_copy_report)",
+    "DmaReport": "the DMA semaphore walk over a kernel jaxpr: op_trace.AsyncCopyReport",
+    "check_dma_discipline": "the DMA semaphore walk over a kernel jaxpr: "
+                            "op_trace.async_copy_report reads cp.async, commits and waits",
+    # analysis/kernel_contracts.py
+    "vmem_footprint": "the double-buffered VMEM budget of a pallas_call: a LaunchPlan states "
+                      "its shared memory (the smem check)",
 }
 KERNEL_PACKAGES = ("block_prune", "block_prune_csr", "block_topk", "chunk_step",
                    "impact_scatter", "impact_scatter_topk", "sparse_score")
@@ -336,7 +359,7 @@ def _init_exports(package: str) -> set:
 
 
 @pytest.mark.parametrize("package", ["metrics", "kernels", "core", "serving", "distributed",
-                                     "train", "checkpoint", "configs", "data"])
+                                     "train", "checkpoint", "configs", "data", "analysis"])
 def test_port_packages_export_what_the_reference_exports(package):
     port = importlib.import_module(f"repro_torch.{package}")
     want = _init_exports(f"repro.{package}")
@@ -371,6 +394,10 @@ ARCH_MODULES = ("archs.embedding", "archs.gnn", "archs.recsys", "configs", "conf
                 "launch.train")
 # The step plans, the dry-run and its costs (the sharding half of A12).
 LAUNCH_MODULES = ("launch.mesh", "launch.steps", "launch.dryrun", "launch.costs")
+# The static analysis (queue A13); jaxpr_walk's counterpart is op_trace.
+ANALYSIS_MODULES = ("analysis.kernel_contracts", "analysis.hot_path", "analysis.check",
+                    "analysis.jaxpr_walk")
+PORT_MODULE = {"analysis.jaxpr_walk": "analysis.op_trace"}
 
 
 def _import_reference(module: str):
@@ -388,10 +415,10 @@ def _import_reference(module: str):
 
 
 @pytest.mark.parametrize("module", REF_MODULES + SHARDED_MODULES + ENCODER_MODULES
-                         + ARCH_MODULES + LAUNCH_MODULES)
+                         + ARCH_MODULES + LAUNCH_MODULES + ANALYSIS_MODULES)
 def test_port_modules_define_what_the_reference_defines(module):
     ref = _import_reference(module)
-    port = importlib.import_module(f"repro_torch.{module}")
+    port = importlib.import_module(f"repro_torch.{PORT_MODULE.get(module, module)}")
     want = {n for n, obj in vars(ref).items()
             if not n.startswith("_") and (inspect.isfunction(obj) or inspect.isclass(obj))
             and obj.__module__ == ref.__name__}
