@@ -9,11 +9,11 @@ host reads by design. The lint holds each route to its **host-read
 budget** (:class:`HostReadBudget`): the reads it may make, where (file and
 function) and how many, as a formula of the dispatch's own work:
 
-  * SAAT (``core/saat.py:234``, ``saat_search``): one read a search at an
+  * SAAT (``core/saat.py:236``, ``saat_search``): one read a search at an
     exact budget (the gather stops at the batch's largest candidate
     total), none otherwise; a handle-backed server's delta is always
     searched exactly, so it adds one;
-  * DAAT exact (``core/daat.py:483``, ``daat_search_batched``): one read a
+  * DAAT exact (``core/daat.py:488``, ``daat_search_batched``): one read a
     pass of the phase-2 loop (its ``act.any()`` test) and the last test;
     a pass is a trip in the plain, split and fused modes and a launch of
     ``trips_per_launch`` trips in the multi-trip mode. Approximate DAAT
@@ -73,7 +73,7 @@ NO_READS = HostReadBudget("no host read")
 def saat_budget(exact_searches: int) -> HostReadBudget:
     """``exact_searches`` reads: one a ``saat_search`` at an exact budget."""
     return HostReadBudget(
-        f"{exact_searches}: one a saat_search at an exact budget (core/saat.py:234)",
+        f"{exact_searches}: one a saat_search at an exact budget (core/saat.py:236)",
         (SAAT_READ_SITE,), lambda trace: exact_searches)
 
 
@@ -84,18 +84,18 @@ def _main_result(result):
 
 def daat_budget(exact: bool, trips_per_launch: int = 1, searches: int = 1) -> HostReadBudget:
     """Exact DAAT: a read a pass of the phase-2 loop and the last test
-    (core/daat.py:483), a pass a trip, or a launch of ``trips_per_launch``
+    (core/daat.py:488), a pass a trip, or a launch of ``trips_per_launch``
     trips; approximate DAAT: none. ``searches`` > 1 (a sharded step's
     shards) bounds the passes by each shard's ``max_chunks``."""
     if not exact:
         return HostReadBudget("0: approximate DAAT runs one gated trip and tests nothing")
     if trips_per_launch > 1:
-        rule = "chunk_step_multi launches + 1 (core/daat.py:483)"
+        rule = "chunk_step_multi launches + 1 (core/daat.py:488)"
 
         def allowed(trace):
             return len(find_kernel_calls(trace, "chunk_step_multi")) + 1
     else:
-        rule = "max(chunks) + 1: a read a trip and the last test (core/daat.py:483)"
+        rule = "max(chunks) + 1: a read a trip and the last test (core/daat.py:488)"
 
         def allowed(trace):
             chunks = _main_result(trace.result).chunks
@@ -130,7 +130,7 @@ def sharded_budget(statics: dict, index_stack) -> HostReadBudget:
     passes = -(-n_blocks // min(statics["daat_block_budget"], n_blocks))
     passes = -(-passes // statics["daat_trips_per_launch"])
     return HostReadBudget(
-        f"at most {n_shards} x ({passes} + 1): each shard's loop (core/daat.py:483)",
+        f"at most {n_shards} x ({passes} + 1): each shard's loop (core/daat.py:488)",
         (DAAT_READ_SITE,), lambda trace: n_shards * (passes + 1))
 
 

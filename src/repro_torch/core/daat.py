@@ -42,6 +42,7 @@ from repro_torch.kernels.block_prune_csr import ops as prune_ops
 from repro_torch.kernels.block_topk import ops as topk_ops
 from repro_torch.kernels.chunk_step import ops as chunk_ops
 from repro_torch.kernels.sparse_score import ops as score_ops
+from repro_torch.metrics import spans
 
 NEG_INF = float("-inf")
 
@@ -386,42 +387,44 @@ def daat_search_batched(
     B = q_terms.shape[0]
     dev = q_terms.device
 
-    if use_kernels:
-        base, cnt = csr_blockmax_offsets(index, q_terms, q_weights, max_bm_per_term)
-        ub, _ = prune_ops.block_prune_csr_batched(
-            index.bm_block, index.bm_weight, base, cnt, q_weights.float(),
-            torch.full((B,), NEG_INF, device=dev),  # no threshold yet: a pure bound pass
-            n_blocks=n_blocks, max_bm_per_term=max_bm_per_term,
-        )
+    with spans.span("daat.phase0"):
+        if use_kernels:
+            base, cnt = csr_blockmax_offsets(index, q_terms, q_weights, max_bm_per_term)
+            ub, _ = prune_ops.block_prune_csr_batched(
+                index.bm_block, index.bm_weight, base, cnt, q_weights.float(),
+                torch.full((B,), NEG_INF, device=dev),  # no threshold yet: a pure bound pass
+                n_blocks=n_blocks, max_bm_per_term=max_bm_per_term,
+            )
 
-        def _select(scores, n):
-            return topk_ops.block_topk_batched(scores, n)
+            def _select(scores, n):
+                return topk_ops.block_topk_batched(scores, n)
 
-        def _score(block_ids, block_live=None):
-            return _score_blocks_kernel_batched(index, q_terms, q_weights, block_ids, live_mask,
-                                                block_live)
+            def _score(block_ids, block_live=None):
+                return _score_blocks_kernel_batched(index, q_terms, q_weights, block_ids,
+                                                    live_mask, block_live)
 
-    else:
-        ub, qvec = daat_plan(index, q_terms, q_weights, max_bm_per_term)
+        else:
+            ub, qvec = daat_plan(index, q_terms, q_weights, max_bm_per_term)
 
-        def _select(scores, n):
-            return topk(scores, n)
+            def _select(scores, n):
+                return topk(scores, n)
 
-        def _score(block_ids, block_live=None):  # the caller masks the blocks that are not live
-            return score_blocks(index, qvec, block_ids, live_mask)
+            def _score(block_ids, block_live=None):  # the caller masks the blocks that are not live
+                return score_blocks(index, qvec, block_ids, live_mask)
 
-    if live_mask is not None:
-        ub = _mask_dead_blocks(index, ub, live_mask)
+        if live_mask is not None:
+            ub = _mask_dead_blocks(index, ub, live_mask)
 
     # ---- phase 1: seed every query's pool in one batched pass ----
-    _, b1 = _select(ub, est_blocks)
-    s1, d1 = _score(b1)
-    pool_s, pos = topk(s1.reshape(B, -1), k)
-    pool_i = torch.gather(d1.reshape(B, -1), -1, pos).to(torch.int32)
-    theta = pool_s[:, k - 1]
-    processed = torch.zeros((B, n_blocks), dtype=torch.bool, device=dev)
-    processed.scatter_(1, b1.long(), True)
-    survivors0 = ((ub > theta[:, None]) & ~processed).sum(dim=-1).to(torch.int32)
+    with spans.span("daat.phase1"):
+        _, b1 = _select(ub, est_blocks)
+        s1, d1 = _score(b1)
+        pool_s, pos = topk(s1.reshape(B, -1), k)
+        pool_i = torch.gather(d1.reshape(B, -1), -1, pos).to(torch.int32)
+        theta = pool_s[:, k - 1]
+        processed = torch.zeros((B, n_blocks), dtype=torch.bool, device=dev)
+        processed.scatter_(1, b1.long(), True)
+        survivors0 = ((ub > theta[:, None]) & ~processed).sum(dim=-1).to(torch.int32)
 
     # ---- phase 2: one loop, per-query state advances independently ----
     def remaining_ub(processed):
@@ -477,14 +480,17 @@ def daat_search_batched(
         )
 
     state = (pool_s, pool_i, processed, theta, torch.zeros(B, dtype=torch.int32, device=dev))
-    if exact:
-        while True:
-            act = active_rows(state)
-            if not bool(act.any()):  # one host sync per trip
-                break
-            state = body(state, act)
-    else:
-        state = body(state, active_rows(state))
+    with spans.span("daat.phase2", trip_cap=trip_cap):
+        if exact:
+            while True:
+                act = active_rows(state)
+                with spans.tally("read"):
+                    more = bool(act.any())  # one host sync per pass
+                if not more:
+                    break
+                state = body(state, act)
+        else:
+            state = body(state, active_rows(state))
     pool_s, pool_i, processed, theta, chunks = state
     blocks_scored = processed.sum(dim=-1).to(torch.int32)
     rank_safe = remaining_ub(processed).amax(dim=-1) <= theta

@@ -38,6 +38,7 @@ from repro_torch.core.impact_index import ImpactIndex, queries_on_device
 from repro_torch.core.topk import topk
 from repro_torch.kernels.impact_scatter import ops as scatter_ops
 from repro_torch.kernels.impact_scatter_topk import ops as fused_ops
+from repro_torch.metrics import spans
 
 SCATTER_IMPLS = ("scatter", "sort", "kernel")
 
@@ -229,10 +230,12 @@ def saat_search(
     q_terms, q_weights, live_mask = queries_on_device(index, q_terms, q_weights, live_mask)
     if q_terms.ndim != 2:
         raise ValueError(f"expected [B, Lq] query batch, got shape {tuple(q_terms.shape)}")
-    plan = saat_plan(index, q_terms, q_weights, max_segs_per_term)
+    with spans.span("saat.plan"):
+        plan = saat_plan(index, q_terms, q_weights, max_segs_per_term)
     if rho >= index.n_postings:
         rho = min(rho, max(1, int(plan.total_postings.max())))
-    docs, contribs, n_proc = _gather_postings_batched(index, plan, rho)
+    with spans.span("saat.gather", rho=rho):
+        docs, contribs, n_proc = _gather_postings_batched(index, plan, rho)
     if fused_topk:
         scores, ids = fused_ops.impact_scatter_topk_batched(
             docs, contribs, index.doc_terms.shape[0], k, n_live=index.n_docs, live=live_mask

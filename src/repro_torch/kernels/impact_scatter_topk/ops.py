@@ -26,6 +26,7 @@ from repro_torch.core.topk import tiled_topk
 from repro_torch.kernels import common
 from repro_torch.kernels.impact_scatter import ops as scatter_ops
 from repro_torch.kernels.impact_scatter_topk.ref import impact_scatter_topk_block_ref
+from repro_torch.metrics import spans
 
 # Launches of the CUDA kernel since the last reset (``chip_smoke.py`` sets
 # it to 0 before the main path and reads it after).
@@ -158,15 +159,18 @@ def impact_scatter_topk_batched(
     n_docs_pad = common.round_up(max(n_docs, block_d), block_d)
     k_out = min(k, n_docs)
     k_blk = min(k_out, block_d)  # a block holds at most block_d of the top-k
-    docs, c = common.sorted_posting_tiles(doc_ids, contribs, n_docs_pad, tile_p)
+    with spans.span("saat.tile_sort"):
+        docs, c = common.sorted_posting_tiles(doc_ids, contribs, n_docs_pad, tile_p)
     if live is not None:
         live = common.pad_axis(live.to(torch.int32), 0, n_docs_pad)[:n_docs_pad].contiguous()
     n_live = min(n_live, n_docs)
-    cand_s, cand_i = common.run_kernel(
-        "impact_scatter_topk", (*docs.shape, n_docs_pad, n_live, k_blk, block_d), docs,
-        lambda: impact_scatter_topk_block_ref(docs, c, n_docs_pad, n_live, k_blk, block_d, live),
-        lambda: impact_scatter_topk_launch(docs, c, n_docs_pad, n_live, k_blk, block_d, live))
-    return _merge_pool(cand_s, cand_i, k_out)
+    with spans.span("saat.b1"):
+        cand_s, cand_i = common.run_kernel(
+            "impact_scatter_topk", (*docs.shape, n_docs_pad, n_live, k_blk, block_d), docs,
+            lambda: impact_scatter_topk_block_ref(docs, c, n_docs_pad, n_live, k_blk, block_d,
+                                                  live),
+            lambda: impact_scatter_topk_launch(docs, c, n_docs_pad, n_live, k_blk, block_d, live))
+        return _merge_pool(cand_s, cand_i, k_out)
 
 
 def impact_scatter_topk(

@@ -81,6 +81,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch.metrics import spans
 from repro_torch.metrics.latency import Clock, SimulatedClock, SystemClock  # noqa: F401  (re-export)
 from repro_torch.serving.bucketing import (
     bucket_for,
@@ -431,66 +432,69 @@ class AdmissionQueue:
         q = self._pending[bucket]
         if not q:
             return
-        now = self.clock.now()
         n = min(len(q), self.batch_shapes[-1])
         shape = self._shape_for(n)
-        batch = [q.popleft() for _ in range(n)]
-        daat = self.server.cfg.engine == "daat"
-        if daat:
-            # straggler-aware composition: similar predicted survivor counts
-            # sit in one batch so the loop tail tracks the batch, not
-            # the stream (stable sort: FIFO among equal predictions)
-            batch.sort(key=lambda r: self.survivors.predict(r.lq_eff))
-        # rows [n:] stay inert sentinels (all pad ids, zero weights): cheaper
-        # than repeating the last request, which burned DAAT loop work
-        # on a duplicate's survivors
-        qt, qw = sentinel_rows(shape, bucket, self.server.index.n_terms)
-        for i, r in enumerate(batch):
-            t, w = pad_to_width(r.q_terms, r.q_weights, bucket, self.server.index.n_terms)
-            qt[i], qw[i] = t, w
-        r_oldest = min(batch, key=lambda r: r.deadline_s)
-        oldest = r_oldest.deadline_s
-        rho: Optional[int] = None
-        if not daat:
-            # pick the level here (identically to what search_batch would do)
-            # so completions/flush_log record the budget actually served
-            if self.degrade_rho:
-                # budget = time to the oldest deadline, less the same safety
-                # headroom the due instant reserves; the epsilon keeps an
-                # exactly-on-time flush from degrading over float round-off
-                remaining_ms = max((oldest - now - self.safety_s + _EPS_S) * 1e3, 0.0)
-                rho = self.server.pick_degraded_rho(shape, bucket, remaining_ms)
-            elif self.dynamic_rho:
-                remaining_ms = max((oldest - now) * 1e3, 0.0)
-                rho = self.server.pick_rho(deadline_ms=remaining_ms)
-            else:
-                rho = self.server.pick_rho()
-        # predicted service of the level ACTUALLY served: the violation /
-        # infeasibility judgement below must account degradation as meeting
-        # the deadline it was chosen to meet, not as missing full-rho's
-        predicted_ms = self.server.predict_service_ms(shape, bucket, rho=rho)
-        res = self.server.search_batch(qt, qw, rho=rho)
-        scores = res.scores.cpu().numpy()
-        ids = res.doc_ids.cpu().numpy()
-        stats = getattr(res, "stats", None) if daat else None
-        if stats is not None:
-            survivors = stats.n_survivors.cpu().numpy()
+        # the flush's span carries the index its FlushRecord takes below
+        with spans.span("queue.flush", group=len(self.flush_log), bucket=bucket, shape=shape,
+                        reason=reason):
+            now = self.clock.now()
+            batch = [q.popleft() for _ in range(n)]
+            daat = self.server.cfg.engine == "daat"
+            if daat:
+                # straggler-aware composition: similar predicted survivor counts
+                # sit in one batch so the loop tail tracks the batch, not
+                # the stream (stable sort: FIFO among equal predictions)
+                batch.sort(key=lambda r: self.survivors.predict(r.lq_eff))
+            # rows [n:] stay inert sentinels (all pad ids, zero weights): cheaper
+            # than repeating the last request, which burned DAAT loop work
+            # on a duplicate's survivors
+            qt, qw = sentinel_rows(shape, bucket, self.server.index.n_terms)
             for i, r in enumerate(batch):
-                self.survivors.observe(r.lq_eff, float(survivors[i]))
-        for i, r in enumerate(batch):
-            self._completions.append(
-                Completion(
-                    rid=r.rid,
-                    scores=scores[i],
-                    doc_ids=ids[i],
-                    arrival_s=r.arrival_s,
-                    flush_s=now,
-                    deadline_s=r.deadline_s,
-                    bucket=bucket,
-                    batch_shape=shape,
-                    rho=rho,
+                t, w = pad_to_width(r.q_terms, r.q_weights, bucket, self.server.index.n_terms)
+                qt[i], qw[i] = t, w
+            r_oldest = min(batch, key=lambda r: r.deadline_s)
+            oldest = r_oldest.deadline_s
+            rho: Optional[int] = None
+            if not daat:
+                # pick the level here (identically to what search_batch would do)
+                # so completions/flush_log record the budget actually served
+                if self.degrade_rho:
+                    # budget = time to the oldest deadline, less the same safety
+                    # headroom the due instant reserves; the epsilon keeps an
+                    # exactly-on-time flush from degrading over float round-off
+                    remaining_ms = max((oldest - now - self.safety_s + _EPS_S) * 1e3, 0.0)
+                    rho = self.server.pick_degraded_rho(shape, bucket, remaining_ms)
+                elif self.dynamic_rho:
+                    remaining_ms = max((oldest - now) * 1e3, 0.0)
+                    rho = self.server.pick_rho(deadline_ms=remaining_ms)
+                else:
+                    rho = self.server.pick_rho()
+            # predicted service of the level ACTUALLY served: the violation /
+            # infeasibility judgement below must account degradation as meeting
+            # the deadline it was chosen to meet, not as missing full-rho's
+            predicted_ms = self.server.predict_service_ms(shape, bucket, rho=rho)
+            res = self.server.search_batch(qt, qw, rho=rho)
+            scores = res.scores.cpu().numpy()
+            ids = res.doc_ids.cpu().numpy()
+            stats = getattr(res, "stats", None) if daat else None
+            if stats is not None:
+                survivors = stats.n_survivors.cpu().numpy()
+                for i, r in enumerate(batch):
+                    self.survivors.observe(r.lq_eff, float(survivors[i]))
+            for i, r in enumerate(batch):
+                self._completions.append(
+                    Completion(
+                        rid=r.rid,
+                        scores=scores[i],
+                        doc_ids=ids[i],
+                        arrival_s=r.arrival_s,
+                        flush_s=now,
+                        deadline_s=r.deadline_s,
+                        bucket=bucket,
+                        batch_shape=shape,
+                        rho=rho,
+                    )
                 )
-            )
         self.n_completed += n
         due = oldest - predicted_ms / 1e3  # violation boundary excludes safety headroom
         infeasible = due <= r_oldest.arrival_s + _EPS_S  # unmeetable at admission

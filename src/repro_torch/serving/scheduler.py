@@ -52,6 +52,7 @@ from repro_torch.core.saat import (
     saat_search,
 )
 from repro_torch.kernels import common
+from repro_torch.metrics import spans
 from repro_torch.metrics.latency import Clock, LatencyStats, SystemClock, summarize_latencies
 from repro_torch.serving.bucketing import bucketize_batch, normalize_buckets, pad_to_width
 
@@ -504,41 +505,36 @@ class AnytimeServer:
                 torch.as_tensor(qw, dtype=torch.float32, device=dev), bucket)
 
     def search_batch(self, q_terms, q_weights, rho: Optional[int] = None):
-        if self.cfg.engine == "daat":
+        daat = self.cfg.engine == "daat"
+        if daat:
             if rho is not None:
                 raise ValueError(
                     "rho is a SAAT posting budget; the daat engine's cost is "
                     "data-dependent and cannot honor it"
                 )
-            t0 = self.clock.now()  # bucketize is service cost: keep it timed
-            q_terms, q_weights, bucket = self._bucketize(q_terms, q_weights)
-            res = self.engine_fn()(q_terms, q_weights)
-            self._sync()
-            elapsed = (self.clock.now() - t0) * 1e3
-            per_query = elapsed / q_terms.shape[0]
-            self._latencies_ms.extend([per_query] * q_terms.shape[0])
-            self._rhos.extend([0] * q_terms.shape[0])
-            self._observe_bucket_ms(bucket, q_terms.shape[0], elapsed)
-            return res
         # an explicit rho must be a real ladder level
-        if rho is None:
+        elif rho is None:
             rho = self.pick_rho()
         elif rho not in self.rho_ladder:
             raise ValueError(
                 f"rho={rho!r} is not a ladder level {self.rho_ladder}; explicit "
                 "budgets must hit a calibrated level"
             )
-        t0 = self.clock.now()  # bucketize is service cost: keep it timed
-        q_terms, q_weights, bucket = self._bucketize(q_terms, q_weights)
-        res = self.engine_fn(rho)(q_terms, q_weights)
-        self._sync()
-        elapsed = (self.clock.now() - t0) * 1e3
-        per_query = elapsed / q_terms.shape[0]
-        for _ in range(q_terms.shape[0]):
-            self._latencies_ms.append(per_query)
-            self._rhos.append(rho)
-        self._cost.update(rho, per_query * 1e3)
-        self._observe_bucket_ms(bucket, q_terms.shape[0], elapsed, rho=rho)
+        with spans.span("server.search_batch", rho=rho):
+            t0 = self.clock.now()  # bucketize is service cost: keep it timed
+            with spans.span("server.bucketize"):
+                q_terms, q_weights, bucket = self._bucketize(q_terms, q_weights)
+            res = self.engine_fn(rho)(q_terms, q_weights)
+            with spans.span("server.sync"):
+                self._sync()
+            elapsed = (self.clock.now() - t0) * 1e3
+            B = q_terms.shape[0]
+            per_query = elapsed / B
+            self._latencies_ms.extend([per_query] * B)
+            self._rhos.extend([0 if daat else rho] * B)
+            if not daat:
+                self._cost.update(rho, per_query * 1e3)
+            self._observe_bucket_ms(bucket, B, elapsed, rho=rho)
         return res
 
     def warmup(
