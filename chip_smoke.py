@@ -2,8 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --saat-cell [--seed N]
 
-It needs one CUDA card and exits non-zero without one. In order:
+It needs one CUDA card and exits non-zero without one. ``--saat-cell`` runs
+only ``saat_cell_phase``: ``impact_scatter_topk``'s segment entry at the
+shapes of the ``spladev2-saat-open`` benchmark cell, on that cell's
+deployment built from the seed (B = 8 and 32 pool queries and a flush of 16
+requests padded to 32 rows, at rho = 1M, with and without tombstones), bit
+for bit against its plain version, the ``[B, P]`` entry and the gathered
+route, timed beside that route, with both routes' peak memory and the
+segment entry's CTA layouts swept. Without it, in order:
 
 1. builds every CUDA kernel from ``src/repro_torch/csrc`` (``nvcc``, sm_90a,
    one process per source, all at once) and prints the build time and the
@@ -18,7 +26,9 @@ It needs one CUDA card and exits non-zero without one. In order:
    range edges (a run across every range boundary, runs longer than a range
    and its read-past, an empty row, postings only on the first or the last
    doc, doc spans of thousands of docs, real postings that end on a range
-   boundary) at every layout; ``block_prune_csr`` bit for bit at its edges
+   boundary) at every layout; ``impact_scatter_topk``'s segment entry (the
+   engine's fused route, which reads the plan) at its contract's cases in
+   the static analysis below; ``block_prune_csr`` bit for bit at its edges
    (blocks on both sides of every tile boundary, B = 1, 63 and 64 at the
    engine's widths, a window cut at the end of the lists, all pad slots, NB
    not a multiple of the tile, one block) at every tile it is swept over;
@@ -45,7 +55,11 @@ It needs one CUDA card and exits non-zero without one. In order:
    padding or no terms, duplicate query terms, the live-block gate), with a
    sweep of its docs per CTA and a check that a split batch scores through
    it and makes no [B, N, Tmax] gather; ``impact_scatter_topk``'s select
-   and sort timed against each other at k_blk = 10, 32 and 64;
+   and sort timed against each other at k_blk = 10, 32 and 64; its segment
+   entry bit for bit against its plain version and against the ``[B, P]``
+   entry's pool on the gathered, sorted postings, timed beside the gather,
+   the sort and the ``[B, P]`` launch it replaces, and its CTA layouts (docs
+   a CTA, threads) swept at B = 64;
    ``block_prune_csr`` at B = 64, 63 and 1 of the batch, and its tiles swept
    at B = 64;
 5. the static analysis (``repro_torch.analysis`` on the card,
@@ -221,6 +235,7 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     DaatResult,
     OperatingPoint,
+    QuantConfig,
     block_upper_bounds,
     build_impact_index,
     csr_blockmax_offsets,
@@ -330,6 +345,13 @@ RTOL, ATOL = 1e-5, 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 L2_BYTES = 50e6  # H100 L2 cache: cold timings rotate over copies of twice this
 SCATTER_RHOS = (1_000_000, 100_000)  # B2's main shapes, beside B = 64 and 1
+# B1's segment entry: the CTA layouts (docs a CTA, threads) its sweep times,
+# and the ``spladev2-saat-open`` benchmark cell whose shapes ``--saat-cell``
+# checks it at (B = 8 and 32, and a flush of 16 requests padded to 32 rows)
+SEGMENT_SWEEP = tuple((d, t) for d in (4096, 8192, 16384) for t in (256, 512, 1024)
+                      if 4 <= d // t <= 32)
+SAAT_CELL_CONFIG = Path(__file__).resolve().parent / "portbench/configs/msmarco-v1-spladev2-shard32.json"
+SAAT_CELL_RHO, SAAT_CELL_K = 1_000_000, 10
 # B1's block top-k by the select and by the sort, swept at B = 64: either side
 # of the rule's switch (the edge phases hold k_blk 1 and 16 bit for bit)
 SELECT_SWEEP_KS = (10, 32, 64)
@@ -407,8 +429,16 @@ Kernel = namedtuple("Kernel", "module counter source replaces path")
 KERNELS = {
     "impact_scatter": Kernel(scatter_ops, "LAUNCHES", "src/repro_torch/csrc/impact_scatter.cu",
                              "src/repro/kernels/impact_scatter/kernel.py:83", "saat"),
+    # the [B, P] entry is the Pallas kernel's counterpart and the engine's
+    # fused route no longer calls it: it runs in the kernel phases and the
+    # B=1 wrapper only; the engine's fused route launches the segment entry
     "impact_scatter_topk": Kernel(fused_ops, "LAUNCHES", "src/repro_torch/csrc/impact_scatter_topk.cu",
-                                  "src/repro/kernels/impact_scatter_topk/kernel.py:229", "saat"),
+                                  "src/repro/kernels/impact_scatter_topk/kernel.py:229", "pool"),
+    # the counterpart of the same Pallas kernel on the engine's fused route,
+    # with the [B, rho] gather and the doc sort before it
+    "impact_scatter_topk_segments": Kernel(
+        fused_ops, "PLAN_LAUNCHES", "src/repro_torch/csrc/impact_scatter_topk.cu",
+        "src/repro/kernels/impact_scatter_topk/kernel.py:229", "saat"),
     "block_prune_csr": Kernel(prune_ops, "LAUNCHES", "src/repro_torch/csrc/block_prune_csr.cu",
                               "src/repro/kernels/block_prune_csr/kernel.py:84", "daat"),
     "block_topk": Kernel(btopk_ops, "LAUNCHES", "src/repro_torch/csrc/block_topk.cu",
@@ -708,6 +738,169 @@ def topk_phase(docs_raw, contribs_raw, n_docs, k, block_d, tile_p, live, single,
     return row
 
 
+def segments_phase(index, plan, rho, k, live, timed, what):
+    """impact_scatter_topk's segment entry on a batch's plan: its pool bit
+    for bit against its plain version on a host copy of the plan and the
+    posting store, and against the ``[B, P]`` entry's pool on the gathered,
+    doc-sorted postings (the route it replaced); timed beside its plain
+    version and that route (``gathered_ms``)."""
+    block_d = 512
+    n_docs = index.doc_terms.shape[0]
+    n_docs_pad = common.round_up(max(n_docs, block_d), block_d)
+    k_blk = min(k, n_docs, block_d)
+    live_pad = None
+    if live is not None:
+        live_pad = common.pad_axis(live.to(torch.int32), 0, n_docs_pad)[:n_docs_pad].contiguous()
+    seg = (index.doc_ids, plan.starts, plan.contribs, plan.cum_len)
+    lim = min(rho, 2**31 - 1)
+
+    def kernel():
+        return fused_ops.impact_scatter_topk_segments_launch(*seg, lim, n_docs_pad, index.n_docs,
+                                                             k_blk, block_d, live_pad)
+
+    def gathered():
+        d, c, _ = _gather_postings_batched(index, plan, min(rho, max_total))
+        d, c = common.sorted_posting_tiles(d, c, n_docs_pad, 512)
+        return fused_ops.impact_scatter_topk_launch(d, c, n_docs_pad, index.n_docs, k_blk,
+                                                    block_d, live_pad)
+
+    max_total = int(plan.total_postings.max())
+    gs, gi = kernel()
+    ws, wi = fused_ref.impact_scatter_topk_segments_ref(
+        *(t.cpu() for t in seg), lim, n_docs_pad, index.n_docs, k_blk, block_d,
+        None if live_pad is None else live_pad.cpu())
+    ps, pi = gathered()
+    sync()
+    check(torch.equal(gi.cpu(), wi) and torch.equal(gs.cpu(), ws),
+          f"impact_scatter_topk_segments {what}: the pool differs from its plain version")
+    check(torch.equal(pi, gi) and torch.equal(ps, gs),
+          f"impact_scatter_topk_segments {what}: the pool differs from the [B, P] entry's")
+    row = {"what": what, "max_abs_err": 0.0}
+    if timed:
+        B, C = plan.cum_len.shape
+        cum = plan.cum_len.long()
+        prev = torch.nn.functional.pad(cum[:, :-1], (1, 0))
+        limit = torch.clamp_max(cum[:, -1:], lim)
+        processed = int(torch.clamp_min(torch.minimum(cum, limit) - prev, 0).sum())
+        columns = int(((prev < limit) & (cum > prev)).sum())
+        row.update(
+            **timings(kernel, lambda: fused_ref.impact_scatter_topk_segments_ref(
+                *seg, lim, n_docs_pad, index.n_docs, k_blk, block_d, live_pad), plain_iters=2),
+            gathered_ms=cuda_ms(gathered),
+            bound_ms=1e3 * (4 * processed + 12 * columns + 8 * B * (n_docs_pad // block_d) * k_blk
+                            + (4 * n_docs_pad if live_pad is not None else 0)) / HBM_BYTES_PER_S,
+            postings=processed, columns=columns, shape=[B, C, n_docs_pad, k_blk])
+    return row
+
+
+def segments_sweep(index, plan, what) -> None:
+    """B1's segment entry at each CTA layout of ``SEGMENT_SWEEP`` (rho = 1M,
+    k = 10), replayed from a CUDA graph; every pool equal to the wrapper's
+    own layout's."""
+    n_docs_pad = common.round_up(max(index.doc_terms.shape[0], 512), 512)
+    seg = (index.doc_ids, plan.starts, plan.contribs, plan.cum_len)
+
+    def kernel():
+        return fused_ops.impact_scatter_topk_segments_launch(
+            *seg, SAAT_CELL_RHO, n_docs_pad, index.n_docs, min(10, index.n_docs), 512)
+
+    chosen = fused_ops.segments_layout
+    want = kernel()
+    times = {}
+    try:
+        for cta_docs, threads in SEGMENT_SWEEP:
+            fused_ops.segments_layout = lambda n, c=cta_docs, t=threads: chosen(n, c, t)
+            if fused_ops.segments_layout(n_docs_pad)["smem"] > common.SMEM_LIMIT:
+                continue
+            got = kernel()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"impact_scatter_topk_segments {what} at {cta_docs}/{threads}: the pool differs")
+            times[f"{cta_docs}/{threads}"] = graph_ms(kernel, 20)
+    finally:
+        fused_ops.segments_layout = chosen
+    lay = chosen(n_docs_pad)
+    print(f"  impact_scatter_topk_segments layout sweep {what}: ms (CUDA graph) by docs a CTA/"
+          f"threads {json.dumps(times)}; the wrapper takes {lay['cta_docs']}/{lay['threads']}, "
+          f"the fastest {min(times, key=times.get)}")
+
+
+def peak_above(fn) -> int:
+    """Bytes ``fn()`` allocates on the card at its peak above what was
+    allocated before it."""
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    sync()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def saat_cell_phase(seed: int, device) -> None:
+    """B1's segment entry at the shapes of the ``spladev2-saat-open``
+    benchmark cell: its deployment (``portbench``'s generator, from
+    ``seed``) and impact index on the card; B = 8 and 32 of its pool
+    queries, padded to the pool's longest, and a flush of 16 requests padded
+    to 32 rows, at rho = 1M and k = 10, with and without a tombstone bitmap.
+    Each is :func:`segments_phase` (bit for bit against its plain version
+    and the ``[B, P]`` entry, timed beside the gathered route's kernels),
+    ``saat_search``'s fused top-k bit for bit against the gathered route's,
+    both routes timed from the plan on, and each route's peak memory above
+    the index; then :func:`segments_sweep` at B = 32 and at the flush."""
+    from portbench.data import make_deployment  # the benchmark's generator, as the cell runs it
+
+    cfg = json.loads(SAAT_CELL_CONFIG.read_text())
+    t0 = time.perf_counter()
+    dep = make_deployment(cfg, seed, device)
+    enc = dep.enc
+    index = build_impact_index(enc.doc_idx, enc.term_idx, enc.weights, dep.n_docs, enc.n_terms,
+                               quant=QuantConfig(bits=int(cfg["index"]["bits"])),
+                               block_size=int(cfg["index"]["block_size"]), device=device)
+    print(f"saat cell: {index.n_docs:,} docs, {index.n_postings:,} postings, index "
+          f"{index.nbytes() / 2**30:.4f} GiB, built in {time.perf_counter() - t0:.1f} s")
+    qt_np, qw_np = dep.padded_pool()
+    rng = np.random.default_rng(seed)
+    pick = rng.permutation(qt_np.shape[0])[:32]
+    live = torch.as_tensor(rng.random(index.doc_terms.shape[0]) < 0.9, dtype=torch.int32,
+                           device=device)
+    flush_w = qw_np[pick].copy()
+    flush_w[16:] = 0.0  # 16 requests padded to 32 rows
+    ms = max_segments_per_term(index)
+    n_docs_pad = common.round_up(max(index.doc_terms.shape[0], 512), 512)
+    k_out = min(SAAT_CELL_K, index.n_docs)
+    for what, bt, bw in (("B=8", qt_np[pick[:8]], qw_np[pick[:8]]),
+                         ("B=32", qt_np[pick], qw_np[pick]), ("flush 16 of 32", qt_np[pick], flush_w)):
+        bt, bw = torch.as_tensor(bt, device=device), torch.as_tensor(bw, device=device)
+        plan = saat_plan(index, bt, bw, ms)
+        for lv in (None, live):
+            tag = f"cell {what}{' live' if lv is not None else ''}"
+            live_pad = None if lv is None else \
+                common.pad_axis(lv, 0, n_docs_pad)[:n_docs_pad].contiguous()
+
+            def fused(bt=bt, bw=bw, lv=lv):
+                return saat_search(index, bt, bw, k=SAAT_CELL_K, rho=SAAT_CELL_RHO,
+                                   max_segs_per_term=ms, fused_topk=True, live_mask=lv)
+
+            def gathered(bt=bt, bw=bw, live_pad=live_pad):
+                d, c, _ = _gather_postings_batched(index, saat_plan(index, bt, bw, ms),
+                                                   SAAT_CELL_RHO)
+                d, c = common.sorted_posting_tiles(d, c, n_docs_pad, 512)
+                pool = fused_ops.impact_scatter_topk_launch(d, c, n_docs_pad, index.n_docs,
+                                                            min(k_out, 512), 512, live_pad)
+                return fused_ops._merge_pool(*pool, k_out)
+
+            row = segments_phase(index, plan, SAAT_CELL_RHO, SAAT_CELL_K, lv, True, tag)
+            res, (want_s, want_i) = fused(), gathered()
+            check(torch.equal(res.scores, want_s) and torch.equal(res.doc_ids, want_i),
+                  f"saat_search {tag}: the fused top-k differs from the gathered route's")
+            row.update(fused_route_ms=cuda_ms(fused), gathered_route_ms=cuda_ms(gathered),
+                       fused_route_peak_gib=peak_above(fused) / 2**30,
+                       gathered_route_peak_gib=peak_above(gathered) / 2**30)
+            print(f"  impact_scatter_topk_segments {tag}: "
+                  + json.dumps({k: v for k, v in row.items() if k != "what"}))
+        if what != "B=8":
+            segments_sweep(index, plan, f"cell {what}")
+
+
 def contract_phases(device, seed) -> tuple[float, float]:
     """Every kernel and B=1 wrapper at the reference's contract shapes."""
     errs = {"impact_scatter": 0.0, "impact_scatter_topk": 0.0}
@@ -964,6 +1157,13 @@ def main_shape_phases(index, qt, qw, live) -> dict:
     sd, sc = common.sorted_posting_tiles(docs, contribs, pad, 512)
     select_sweep(sd, sc, pad, index.n_docs, 512)
     scatter_shape_sweep(sd, sc, pad, index.n_docs, 512)
+    del docs, contribs, sd, sc
+    rows["impact_scatter_topk_segments"] = [
+        segments_phase(index, plan, rho, k, lv, timed, f"{tag} B={B} k={k}{' live' if lv is not None else ''}")
+        for tag, rho, k, lv, timed in (("main rho=1M", 1_000_000, 10, None, True),
+                                       ("edge rho=1M", 1_000_000, 1000, live, False),
+                                       ("edge exact", index.n_postings, 10, None, False))]
+    segments_sweep(index, plan, f"main B={B} rho=1M")
     for name, rs in rows.items():
         for r in rs:
             print(f"  {name} {r['what']}: " + json.dumps({k: v for k, v in r.items() if k != "what"}))
@@ -2201,7 +2401,8 @@ def serve_direct(index, qt_np, qw_np, qrels) -> None:
     reset_launches()
     scores, ids = run_query_stream(server, qt_np, qw_np)
     launches = read_launches()
-    check(launches["impact_scatter_topk"] > 0, "direct serving launched no impact_scatter_topk")
+    check(launches["impact_scatter_topk_segments"] > 0 and launches["impact_scatter_topk"] == 0,
+          f"direct serving did not launch the segment entry alone: {launches}")
     stats = server.stats()
     served = [int(r) for r in server._rhos]
     check(max(served) < top, f"the controller served the top level under deadline {deadline}")
@@ -2266,7 +2467,8 @@ def serve_queue(index, qt_np, qw_np, qrels, seed) -> None:
                             [r[1] for r in requests], [QUEUE_DEADLINE_MS] * QUEUE_REQUESTS)
     replay_s = time.perf_counter() - t0
     launches = read_launches()
-    check(launches["impact_scatter_topk"] > 0, "queue serving launched no impact_scatter_topk")
+    check(launches["impact_scatter_topk_segments"] > 0 and launches["impact_scatter_topk"] == 0,
+          f"queue serving did not launch the segment entry alone: {launches}")
     check(sorted(c.rid for c in comps) == list(range(QUEUE_REQUESTS))
           and queue.n_completed == QUEUE_REQUESTS, "queue: a request was lost or served twice")
     by_rid = {c.rid: c for c in comps}
@@ -2480,7 +2682,7 @@ def churn_phase(index, qt_np, qw_np, seed) -> None:
         [QUEUE_DEADLINE_MS] * CHURN_REQUESTS, mutations, compactor=compactor)
     replay_s = time.perf_counter() - t0
     launches = read_launches()
-    for name in ("impact_scatter_topk", "block_prune_csr", "block_topk", "sparse_score",
+    for name in ("impact_scatter_topk_segments", "block_prune_csr", "block_topk", "sparse_score",
                  "chunk_step"):
         check(launches[name] > 0, f"churn: kernel {name} was not launched")
     check(compactor.n_compactions == 1 and handle.generation == 1,
@@ -2763,7 +2965,7 @@ def sharded_phase(enc, index, qt, qw, live, results, d_results, qrels, rr_1m, se
     check(bool((live[i.long()[fin]] != 0).all()), "sharded live-masked: a tombstoned doc came back")
     pod_front_end(stack, dps, n_docs, qt.cpu().numpy(), qw.cpu().numpy(), seed, card)
     launches = read_launches()
-    path = ("impact_scatter", "impact_scatter_topk", "block_prune_csr", "block_topk",
+    path = ("impact_scatter", "impact_scatter_topk_segments", "block_prune_csr", "block_topk",
             "sparse_score", "chunk_step")
     for name in path:
         check(launches[name] > 0, f"sharded serving: kernel {name} was not launched")
@@ -3032,8 +3234,9 @@ def encoder_loop(device) -> None:
                                     ("kernel", dict(scatter_impl="kernel")))}
         sync()
         launches = read_launches()
-        check(launches["impact_scatter_topk"] == 1 and launches["impact_scatter"] == 1,
-              f"encoder loop: B1 and B2 not each launched once a batch: {launches}")
+        check(launches["impact_scatter_topk_segments"] == 1 and launches["impact_scatter"] == 1
+              and launches["impact_scatter_topk"] == 0,
+              f"encoder loop: B1's segment entry and B2 not each launched once a batch: {launches}")
         for route, res in routes.items():
             what = f"encoder loop {route} batch@{lo}"
             check(torch.equal(res.postings_processed, plain.postings_processed),
@@ -3046,7 +3249,7 @@ def encoder_loop(device) -> None:
           f"learned {report['index'].n_postings:,}, bm25 {report['bm25_index'].n_postings:,}; "
           f"Lq {qt.shape[1]}; {qt.shape[0]} queries through B1 and B2 at exact rho {rho:,}: "
           f"equal to the sort mode, {swaps} ranks differ in id between near-tied scores; "
-          f"impact_scatter_topk and impact_scatter each launched "
+          f"impact_scatter_topk's segment entry and impact_scatter each launched "
           f"{-(-qt.shape[0] // BATCH)} times")
 
 
@@ -3819,11 +4022,12 @@ def main_shape_lint(index, qt, qw) -> None:
     """The hot-path lint once per route on one 64-query batch at the main
     shapes: SAAT fused and scatter kernel at rho = 1M and exact, DAAT split,
     fused and 8 trips a launch, exact. Every route's reads must equal its
-    budget, the recorder's count the sync debug mode's."""
+    budget (none on the fused SAAT route), the recorder's count the sync
+    debug mode's."""
     ms, mb = max_segments_per_term(index), max_blocks_per_term(index)
     routes = [(f"saat {name} rho={rho}", lambda qt, qw, kw=kw, rho=r: saat_search(
                    index, qt, qw, k=SERVE_K, rho=rho, max_segs_per_term=ms, **kw),
-               saat_budget(int(r >= index.n_postings)))
+               saat_budget(int(r >= index.n_postings and "fused_topk" not in kw)))
               for name, kw in (("fused", dict(fused_topk=True)), ("kernel",
                                                                   dict(scatter_impl="kernel")))
               for rho, r in (("1M", 1_000_000), ("exact", index.n_postings))]
@@ -4110,6 +4314,7 @@ def run(args, device) -> None:
     errs = {
         "impact_scatter": max([err_s] + [r["max_abs_err"] for r in rows["impact_scatter"]]),
         "impact_scatter_topk": max([err_t] + [r["max_abs_err"] for r in rows["impact_scatter_topk"]]),
+        "impact_scatter_topk_segments": 0.0,  # equal bit for bit
     }
     errs.update({n: max([daat_errs[n]] + [r["max_abs_err"] for r in rows[n]]) for n in DAAT_KERNELS})
     errs.update({n: 0.0 for n in ("block_prune", "block_prune_b1")})  # equal bit for bit
@@ -4136,10 +4341,17 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0, help="seed of the corpus and every input")
     ap.add_argument("--n-docs", type=int, default=N_DOCS, help="a smaller shard for a quick check")
     ap.add_argument("--n-queries", type=int, default=N_QUERIES)
+    ap.add_argument("--saat-cell", action="store_true",
+                    help="only B1's segment entry at the spladev2-saat-open cell's shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.saat_cell:
+        print(gpu_name_and_limit())
+        saat_cell_phase(args.seed, torch.device("cuda"))
+        print(json.dumps({"ok": True}))
+        return
     run(args, torch.device("cuda"))
 
 

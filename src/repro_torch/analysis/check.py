@@ -58,9 +58,10 @@ def serving_config_matrix(lq_buckets: tuple = (4, 8), k: int = 5):
     Each route's host-read budget (:func:`repro_torch.analysis.hot_path.
     server_budget`):
 
-      * SAAT, all four: 1 read at the exact level (``core/saat.py:236``,
-        the gather's stop at the batch's largest candidate total), 0 at
-        the others;
+      * SAAT, the three unfused: 1 read at the exact level
+        (``core/saat.py:246``, the gather's stop at the batch's largest
+        candidate total), 0 at the others; fused: 0 at every level (the
+        kernel bounds each row by its own total);
       * DAAT exact, all four (plain, split kernels, fused chunk step, 4
         trips a launch): ``passes + 1`` reads at ``core/daat.py:488``
         (``act.any()`` before each pass of the phase-2 loop and once more

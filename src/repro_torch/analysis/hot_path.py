@@ -9,10 +9,11 @@ host reads by design. The lint holds each route to its **host-read
 budget** (:class:`HostReadBudget`): the reads it may make, where (file and
 function) and how many, as a formula of the dispatch's own work:
 
-  * SAAT (``core/saat.py:236``, ``saat_search``): one read a search at an
+  * SAAT (``core/saat.py:246``, ``saat_search``): one read a search at an
     exact budget (the gather stops at the batch's largest candidate
     total), none otherwise; a handle-backed server's delta is always
-    searched exactly, so it adds one;
+    searched exactly, so it adds one. The fused route (``fused_topk``)
+    bounds each row on the device and reads nothing;
   * DAAT exact (``core/daat.py:488``, ``daat_search_batched``): one read a
     pass of the phase-2 loop (its ``act.any()`` test) and the last test;
     a pass is a trip in the plain, split and fused modes and a launch of
@@ -73,7 +74,7 @@ NO_READS = HostReadBudget("no host read")
 def saat_budget(exact_searches: int) -> HostReadBudget:
     """``exact_searches`` reads: one a ``saat_search`` at an exact budget."""
     return HostReadBudget(
-        f"{exact_searches}: one a saat_search at an exact budget (core/saat.py:236)",
+        f"{exact_searches}: one a saat_search at an exact budget (core/saat.py:246)",
         (SAAT_READ_SITE,), lambda trace: exact_searches)
 
 
@@ -108,6 +109,8 @@ def server_budget(server, rho: Optional[int] = None) -> HostReadBudget:
     cfg = server.cfg
     if cfg.engine == "daat":
         return daat_budget(cfg.daat_exact, cfg.daat_trips_per_launch)
+    if cfg.fused_topk:
+        return saat_budget(0)  # each row is bounded on the device
     rho = server.rho_ladder[-1] if rho is None else rho
     main = server.handle.main if server.handle is not None else server.index
     n = int(rho >= main.n_postings)
@@ -119,11 +122,13 @@ def server_budget(server, rho: Optional[int] = None) -> HostReadBudget:
 def sharded_budget(statics: dict, index_stack) -> HostReadBudget:
     """The budget of a sharded or pod step run in process (every rank's
     shards searched here): SAAT, a read a shard when ``rho_per_shard``
-    reaches a shard's posting count; DAAT, at most ``max_chunks + 1`` a
-    shard (a trip a pass; ``trips_per_launch`` trips a pass)."""
+    reaches a shard's posting count (none on the fused route); DAAT, at
+    most ``max_chunks + 1`` a shard (a trip a pass; ``trips_per_launch``
+    trips a pass)."""
     n_shards = int(index_stack.doc_ids.shape[0])
     if statics["engine"] != "daat":
-        return saat_budget(n_shards * int(statics["rho_per_shard"] >= index_stack.doc_ids.shape[1]))
+        exact = statics["rho_per_shard"] >= index_stack.doc_ids.shape[1]
+        return saat_budget(n_shards * int(exact and not statics["fused_topk"]))
     if not statics["daat_exact"]:
         return daat_budget(False)
     n_blocks = int(index_stack.doc_terms.shape[1]) // int(index_stack.block_size)

@@ -18,10 +18,12 @@ the contributions into per-query accumulators.
                    reference's ``"sort"``);
   * ``"kernel"``   the ``impact_scatter`` CUDA kernel (the reference's
                    ``"pallas"``).
-``fused_topk=True`` runs the ``impact_scatter_topk`` CUDA kernel instead,
-which fuses the top-k into the scatter: only per-block candidates reach
-device memory, and ``scatter_impl`` is ignored. On CPU tensors both kernel
-routes run their plain PyTorch versions.
+``fused_topk=True`` runs the ``impact_scatter_topk`` CUDA kernel's segment
+entry instead, which fuses the gather and the top-k into the scatter: it
+reads each admitted posting's doc straight from the index through the plan,
+so neither the ``[B, rho]`` postings nor the accumulator reach device
+memory, and ``scatter_impl`` is ignored. On CPU tensors both kernel routes
+run their plain PyTorch versions.
 
 ``saat_search_vmap`` runs the same search one query at a time (the
 reference's ``jax.vmap`` of one query, as a loop): the parity oracle of the
@@ -221,28 +223,31 @@ def saat_search(
     (nonzero = live) ANDed into the pad mask, so tombstoned docs score
     ``-inf``. The accumulation is untouched.
 
-    At the exact level (``rho >= index.n_postings``) the gather stops at the
-    batch's largest candidate total (one host read): slots past a query's
-    total carry nothing, and eager PyTorch keeps no static shapes, so the
-    results are unchanged while the ``[B, n_postings]`` arrays of an exact
-    budget never reach the device's memory.
+    The fused route bounds each row by its own total on the device and
+    reads nothing on the host. The other routes gather ``[B, rho]`` slots;
+    at the exact level (``rho >= index.n_postings``) their gather stops at
+    the batch's largest candidate total (one host read): slots past a
+    query's total carry nothing, and eager PyTorch keeps no static shapes,
+    so the results are unchanged while the ``[B, n_postings]`` arrays of an
+    exact budget never reach the device's memory.
     """
     q_terms, q_weights, live_mask = queries_on_device(index, q_terms, q_weights, live_mask)
     if q_terms.ndim != 2:
         raise ValueError(f"expected [B, Lq] query batch, got shape {tuple(q_terms.shape)}")
     with spans.span("saat.plan"):
         plan = saat_plan(index, q_terms, q_weights, max_segs_per_term)
+    if fused_topk:
+        scores, ids = fused_ops.impact_scatter_topk_segments(
+            index.doc_ids, plan.starts, plan.contribs, plan.cum_len, rho,
+            index.doc_terms.shape[0], k, n_live=index.n_docs, live=live_mask)
+        n_proc = torch.clamp_max(plan.total_postings, min(rho, 2**31 - 1)).to(torch.int32)
+        return SaatResult(scores, ids.to(torch.int32), n_proc, plan.total_postings)
     if rho >= index.n_postings:
         rho = min(rho, max(1, int(plan.total_postings.max())))
     with spans.span("saat.gather", rho=rho):
         docs, contribs, n_proc = _gather_postings_batched(index, plan, rho)
-    if fused_topk:
-        scores, ids = fused_ops.impact_scatter_topk_batched(
-            docs, contribs, index.doc_terms.shape[0], k, n_live=index.n_docs, live=live_mask
-        )
-    else:
-        acc = _accumulate_batched(index, docs, contribs, scatter_impl)
-        scores, ids = topk(_mask_pad_docs(index, acc, live_mask), k)
+    acc = _accumulate_batched(index, docs, contribs, scatter_impl)
+    scores, ids = topk(_mask_pad_docs(index, acc, live_mask), k)
     return SaatResult(scores, ids.to(torch.int32), n_proc, plan.total_postings)
 
 

@@ -1,6 +1,7 @@
 // Shared device code of the kernels that select inside themselves
 // (impact_scatter_topk.cu, block_topk.cu, chunk_step.cu): packed 64-bit
-// selection keys, a descending bitonic sort over them, and a top-n select,
+// selection keys, a descending bitonic sort over them, and a top-n select
+// by a block or by one warp,
 // so every kernel orders by score and breaks ties toward the lowest index,
 // -inf included, as lax.top_k does in the reference.
 //
@@ -113,6 +114,32 @@ __device__ __forceinline__ void block_select_desc(const KeyAt& key_at, int m, in
     }
   }
   __syncthreads();
+}
+
+// The n best of the keys key_at(0), ..., key_at(m - 1), highest first, kept
+// by one warp alone: emit(r, key) is called by lane 0 for r = 0, ..., n - 1.
+// n <= m; key_at must give unique nonzero keys. The first phase of
+// block_select_desc with no merge: n rounds of a warp-wide max, after each
+// of which only the lane that gave up its key rescans its keys (m / 32 of
+// them). No barrier, so each warp of a block can keep another slice's best.
+template <typename KeyAt, typename Emit>
+__device__ __forceinline__ void warp_select_desc(const KeyAt& key_at, int m, int n,
+                                                 const Emit& emit) {
+  const int lane = threadIdx.x & 31;
+  const auto best_below = [&](unsigned long long below) {
+    unsigned long long best = 0ull;
+    for (int i = lane; i < m; i += 32) {
+      const unsigned long long key = key_at(i);
+      if (key < below && key > best) best = key;
+    }
+    return best;
+  };
+  unsigned long long mine = best_below(~0ull);
+  for (int r = 0; r < n; ++r) {
+    const unsigned long long best = warp_max_key(mine);
+    if (lane == 0) emit(r, best);
+    if (mine == best) mine = best_below(best);
+  }
 }
 
 // Sorts keys[0, n) in shared memory, descending. n is a power of two and

@@ -20,7 +20,10 @@ products, and sums each block's column in slot order. On the CPU:
 * the kernel's precondition: block ids ascend within every term's list, for
   each index builder of the port (``build_impact_index``,
   ``index_from_numpy`` of a reference index, an ``IndexHandle``'s delta
-  and compacted indexes).
+  and compacted indexes); and for the same builders, the precondition of
+  ``impact_scatter_topk``'s segment entry (the fused SAAT route), whose
+  kernel binary-searches a segment for a doc range: doc ids ascend within
+  every segment.
 
 On a card (marker ``cuda``; they skip here): the kernel against its plain
 version bit for bit at the same edges and tiles.
@@ -252,6 +255,19 @@ def _assert_lists_ascend(index):
     assert (start == np.concatenate([[0], np.cumsum(count)[:-1]])).all()
 
 
+def _assert_segments_ascend(index):
+    doc_ids = index.doc_ids.cpu().numpy().astype(np.int64)
+    start = index.seg_start.cpu().numpy().astype(np.int64)
+    length = index.seg_len.cpu().numpy().astype(np.int64)
+    seg = np.repeat(np.arange(length.shape[0]), length)
+    pos = np.repeat(start - np.concatenate([[0], np.cumsum(length)[:-1]]), length) + np.arange(
+        seg.shape[0])
+    docs = doc_ids[pos]
+    same_seg = seg[1:] == seg[:-1]
+    assert same_seg.any()
+    assert (np.diff(docs)[same_seg] > 0).all()
+
+
 def _coo(seed, n_docs=300, n_terms=50, n=3000):
     rng = np.random.default_rng(seed)
     return (rng.integers(0, n_docs, n), rng.integers(0, n_terms, n), rng.gamma(2.0, 1.0, n),
@@ -301,6 +317,14 @@ def test_block_ids_ascend_within_every_list(builder):
         index = BUILDERS[builder](seed)
         assert index is not None and index.bm_block.shape[0] > 0
         _assert_lists_ascend(index)
+
+
+@pytest.mark.parametrize("builder", list(BUILDERS))
+def test_doc_ids_ascend_within_every_segment(builder):
+    for seed in (0, 1):
+        index = BUILDERS[builder](seed)
+        assert index is not None and index.seg_len.shape[0] > 0
+        _assert_segments_ascend(index)
 
 
 # ---------------------------------------------------------------------------
